@@ -1,0 +1,7 @@
+"""Processing-order constants (counterpart of
+convopeq_tpu/models/gain_planner.py:19-21).  The AutoGainPlanner itself
+is ported with the staged chain."""
+
+# ProcessingOrder (src/audioengine: enum) — Convolver first vs EQ first
+CONVOLVER_THEN_EQ = 0
+EQ_THEN_CONVOLVER = 1

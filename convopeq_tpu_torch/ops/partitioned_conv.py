@@ -1,0 +1,78 @@
+"""Partitioned overlap-save FFT convolution — uniform layer primitive
+(counterpart of convopeq_tpu/ops/partitioned_conv.py:23-51, 289-443).
+
+50%-overlap-save frames of size p with 2p-point real FFTs, partition
+spectra H_j, and the per-frame causal MAC  Y_k = sum_j X_{k-j} * H_j
+(ref: src/MKLNonUniformConvolver.cpp:1245-1336 processLayerBlock),
+computed for all frames at once: one forward transform of every frame,
+the MAC over the frame axis, one inverse transform of every frame.
+
+The three steps are the frame kernels of `frame_conv_kernels`: on a CUDA
+f32 tensor the hand-written kernels, on a CPU tensor their plain
+versions.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from .frame_conv_kernels import (causal_mac, causal_mac_plain, frames_rfft,
+                                 frames_rfft_plain, irfft_valid,
+                                 irfft_valid_plain)
+
+_FRAME_STEPS = {
+    "auto": (frames_rfft, causal_mac, irfft_valid),
+    "plain": (frames_rfft_plain, causal_mac_plain, irfft_valid_plain),
+}
+
+
+def partition_spectra(h, part_size: int, num_parts: int | None = None,
+                      dtype=torch.float64, device="cpu"):
+    """Partition an impulse response and FFT each zero-padded partition.
+
+    Mirrors SetImpulse's per-partition precompute
+    (MKLNonUniformConvolver.cpp:905-955): partition j covers
+    h[j*p : (j+1)*p], zero-padded to 2p, real FFT -> (num_parts, p+1).
+    Rebuild-time work: computed on the host in `dtype`, then moved to
+    `device`."""
+    h = torch.as_tensor(h).to("cpu", dtype)
+    n = h.shape[-1]
+    p = part_size
+    nparts = -(-n // p) if num_parts is None else num_parts
+    pad = nparts * p - n
+    if pad:
+        h = F.pad(h, (0, pad))
+    parts = h.reshape(h.shape[:-1] + (nparts, p))
+    parts = F.pad(parts, (0, p))
+    return torch.fft.rfft(parts, dim=-1).to(resolve_device(device))
+
+
+def uniform_partitioned_conv(x, Hparts, part_size: int, frame_mac="auto"):
+    """Overlap-save partitioned convolution of x with precomputed spectra.
+
+    x: (..., N) real signal, time last.
+    Hparts: (P, part_size+1) complex partition spectra from
+      `partition_spectra`, on x's device.
+    frame_mac: "auto" runs the frame kernels' wrappers (the CUDA kernels
+      for a CUDA tensor, the plain versions for a CPU tensor); "plain"
+      runs the plain versions on any device (the f64 reference on the
+      card).
+
+    Returns y: (..., N) — frames k cover [k*p,(k+1)*p); equals linear
+    convolution x*h truncated to N when Hparts are unfiltered.
+    """
+    if frame_mac not in _FRAME_STEPS:
+        raise ValueError(f"frame_mac: {frame_mac!r}")
+    if Hparts.device != x.device:
+        raise ValueError(f"spectra on {Hparts.device}, signal on {x.device}")
+    fwd, mac, inv = _FRAME_STEPS[frame_mac]
+    n = x.shape[-1]
+    p = part_size
+    k = -(-n // p)
+    pad = k * p - n
+    xp = F.pad(x, (0, pad)) if pad else x
+    frames = xp.reshape((-1, k, p)).contiguous()
+    y = inv(mac(fwd(frames), Hparts))
+    y = y.reshape(x.shape[:-1] + (k * p,))
+    return y[..., :n]

@@ -1,0 +1,206 @@
+"""The frame kernels of convopeq_tpu_torch on the CPU.
+
+- The plain versions against the JAX Pallas kernels in interpret mode
+  (bf16x3 dots: atol 6e-5 x scale for the transforms, 2e-5 x max for the
+  MAC, as tests/test_pallas.py), and in f64 against jnp.fft at 1e-12.
+- uniform_partitioned_conv, torch f64 against JAX f64.
+- The CUDA source itself, compiled for the host by
+  tests/frame_conv_host_emulation.cpp (each block run as one thread),
+  against the plain versions.
+"""
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from convopeq_tpu.ops import pallas_gemm_fft as pg
+from convopeq_tpu.ops import partitioned_conv as j_pc
+from convopeq_tpu_torch.ops import frame_conv_kernels as fk
+from convopeq_tpu_torch.ops import partitioned_conv as t_pc
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _frames(rng, C, K, p, dtype=np.float32):
+    return rng.normal(size=(C, K, p)).astype(dtype)
+
+
+def _cplx(rng, shape, dtype=np.complex64):
+    return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(dtype)
+
+
+@pytest.mark.parametrize("p", [512, 2048])
+@pytest.mark.parametrize("C,K", [(1, 5), (2, 11)])
+def test_frames_rfft_plain_matches_pallas(p, C, K):
+    rng = np.random.default_rng(p + K)
+    fr = _frames(rng, C, K, p)
+    Xr, Xi = pg.rfft_frames_two_stage_pallas(jnp.asarray(fr), p,
+                                             interpret=True)
+    ref = np.asarray(Xr)[..., :p + 1] + 1j * np.asarray(Xi)[..., :p + 1]
+    X = fk.frames_rfft_plain(torch.from_numpy(fr)).numpy()
+    assert X.shape == (C, K, p + 1) and X.dtype == np.complex64
+    np.testing.assert_allclose(X, ref, rtol=0, atol=6e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("p", [512, 2048])
+@pytest.mark.parametrize("C,K,P", [(1, 5, 9), (2, 11, 4)])
+def test_causal_mac_plain_matches_pallas(p, C, K, P):
+    rng = np.random.default_rng(p + 7 * K + P)
+    X = _cplx(rng, (C, K, p + 1))
+    H = _cplx(rng, (P, p + 1))
+    _n1, _k2, g = pg.grid_bins(p)
+    grid = lambda a: np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, g - p - 1)])
+    Yr, Yi = pg.causal_mac_grid_pallas(
+        jnp.asarray(grid(X.real)), jnp.asarray(grid(X.imag)),
+        jnp.asarray(grid(H.real)), jnp.asarray(grid(H.imag)), p,
+        interpret=True)
+    ref = np.asarray(Yr)[..., :p + 1] + 1j * np.asarray(Yi)[..., :p + 1]
+    Y = fk.causal_mac_plain(torch.from_numpy(X), torch.from_numpy(H)).numpy()
+    np.testing.assert_allclose(Y, ref, rtol=0, atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("p", [512, 2048])
+@pytest.mark.parametrize("C,K", [(2, 3)])
+def test_irfft_valid_plain_matches_pallas(p, C, K):
+    rng = np.random.default_rng(p + 3 * K)
+    S = np.fft.rfft(rng.normal(size=(C, K, 2 * p)), axis=-1).astype(
+        np.complex64)
+    _n1, _k2, g = pg.grid_bins(p)
+    pad = [(0, 0), (0, 0), (0, g - p - 1)]
+    ref = np.asarray(pg.irfft_valid_two_stage_pallas(
+        jnp.asarray(np.pad(S.real, pad)), jnp.asarray(np.pad(S.imag, pad)),
+        p, interpret=True))
+    y = fk.irfft_valid_plain(torch.from_numpy(S)).numpy()
+    assert y.shape == (C, K, p)
+    np.testing.assert_allclose(y, ref, rtol=0,
+                               atol=6e-5 * max(1.0, np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("p", [512, 2048])
+def test_plain_versions_f64_match_jnp_fft(p):
+    rng = np.random.default_rng(p)
+    C, K, P = 2, 6, 9
+    fr = _frames(rng, C, K, p, np.float64)
+    prev = np.concatenate([np.zeros((C, 1, p)), fr[:, :-1]], axis=1)
+    X_ref = np.array(jnp.fft.rfft(jnp.asarray(
+        np.concatenate([prev, fr], axis=-1)), axis=-1))
+    X = fk.frames_rfft_plain(torch.from_numpy(fr)).numpy()
+    np.testing.assert_allclose(X, X_ref, rtol=0,
+                               atol=1e-12 * np.abs(X_ref).max())
+    H = _cplx(rng, (P, p + 1), np.complex128)
+    Y_ref = np.array(j_pc._causal_frame_mac_fft(jnp.asarray(X_ref),
+                                                  jnp.asarray(H)))
+    Y = fk.causal_mac_plain(torch.from_numpy(X_ref),
+                            torch.from_numpy(H)).numpy()
+    np.testing.assert_allclose(Y, Y_ref, rtol=0,
+                               atol=1e-12 * np.abs(Y_ref).max())
+    y_ref = np.asarray(jnp.fft.irfft(jnp.asarray(Y_ref), n=2 * p,
+                                     axis=-1))[..., p:]
+    y = fk.irfft_valid_plain(torch.from_numpy(Y_ref)).numpy()
+    np.testing.assert_allclose(y, y_ref, rtol=0,
+                               atol=1e-12 * np.abs(y_ref).max())
+
+
+def test_wrappers_take_plain_versions_on_cpu():
+    rng = np.random.default_rng(2)
+    fr = torch.from_numpy(_frames(rng, 2, 4, 512))
+    H = torch.from_numpy(_cplx(rng, (3, 513)))
+    fk.reset_launch_counts()
+    X = fk.frames_rfft(fr)
+    Y = fk.causal_mac(X, H)
+    y = fk.irfft_valid(Y)
+    assert torch.equal(X, fk.frames_rfft_plain(fr))
+    assert torch.equal(Y, fk.causal_mac_plain(X, H))
+    assert torch.equal(y, fk.irfft_valid_plain(Y))
+    assert fk.launch_counts == {"frames_rfft": 0, "causal_mac": 0,
+                                "irfft_valid": 0}
+
+
+def _rel_rms(a, b):
+    return float(np.sqrt(np.mean((a - b) ** 2) / np.mean(b ** 2)))
+
+
+@pytest.mark.parametrize("p,n,taps", [(1024, 9999, 11 * 1024 + 7),
+                                      (512, 700, 9 * 512)])
+def test_uniform_partitioned_conv_f64_matches_jax(p, n, taps):
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(2, 3, n))
+    h = rng.normal(size=taps) * np.exp(-np.arange(taps) / (taps / 4))
+    Hj = j_pc.partition_spectra(jnp.asarray(h), p, dtype=jnp.float64)
+    yj = np.asarray(j_pc.uniform_partitioned_conv(jnp.asarray(x), Hj, p))
+    Ht = t_pc.partition_spectra(h, p, dtype=torch.float64)
+    np.testing.assert_allclose(Ht.numpy(), np.asarray(Hj), rtol=0,
+                               atol=1e-12 * np.abs(np.asarray(Hj)).max())
+    for frame_mac in ("auto", "plain"):
+        yt = t_pc.uniform_partitioned_conv(torch.from_numpy(x), Ht, p,
+                                           frame_mac).numpy()
+        assert yt.shape == x.shape
+        assert _rel_rms(yt, yj) <= 1e-12
+
+
+# ------------------------------------------------ the CUDA source, emulated
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """csrc/frame_conv.cu built for the host by the emulation shim."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler for the kernel emulation")
+    out = tmp_path_factory.mktemp("emu") / "libframe_conv_emu.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o",
+                    str(out), str(ROOT / "tests" /
+                                  "frame_conv_host_emulation.cpp")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    lib.frames_rfft_f32.argtypes = [P_, P_, P_, I_, I_, I_, P_]
+    lib.irfft_valid_f32.argtypes = [P_, P_, P_, I_, I_, I_, P_]
+    lib.causal_mac_c64.argtypes = [P_, P_, P_, I_, I_, I_, I_, P_]
+    lib.frame_conv_mac_tile.argtypes = [I_]
+    return lib
+
+
+@pytest.mark.parametrize("p,C,K", [(512, 2, 3), (2048, 1, 5), (65536, 1, 2)])
+def test_cuda_source_transforms_emulated(emulated, p, C, K):
+    rng = np.random.default_rng(p + C)
+    fr = torch.from_numpy(_frames(rng, C, K, p))
+    X = torch.empty((C, K, p + 1), dtype=torch.complex64)
+    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex64)
+    assert emulated.frames_rfft_f32(fr.data_ptr(), scratch.data_ptr(),
+                                    X.data_ptr(), C, K, p, None) == 0
+    ref = fk.frames_rfft_plain(fr.double())
+    assert float((X - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    Y = torch.from_numpy(_cplx(rng, (C, K, p + 1)))
+    y = torch.empty((C, K, p), dtype=torch.float32)
+    assert emulated.irfft_valid_f32(Y.data_ptr(), scratch.data_ptr(),
+                                    y.data_ptr(), C, K, p, None) == 0
+    ref_y = fk.irfft_valid_plain(Y.to(torch.complex128))
+    assert float((y - ref_y).abs().max()) <= 2e-5 * max(
+        1.0, float(ref_y.abs().max()))
+
+
+@pytest.mark.parametrize("C,K,P,B", [(2, 11, 4, 513), (1, 5, 9, 1025),
+                                     (3, 40, 33, 300), (1, 3, 200, 77)])
+def test_cuda_source_mac_emulated(emulated, C, K, P, B):
+    rng = np.random.default_rng(K * P)
+    X = torch.from_numpy(_cplx(rng, (C, K, B)))
+    H = torch.from_numpy(_cplx(rng, (P, B)))
+    Y = torch.empty_like(X)
+    assert emulated.causal_mac_c64(X.data_ptr(), H.data_ptr(), Y.data_ptr(),
+                                   C, K, B, P, None) == 0
+    ref = fk.causal_mac_plain(X.to(torch.complex128), H.to(torch.complex128))
+    assert float((Y - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+
+
+def test_cuda_source_rejects_unsupported_shapes_emulated(emulated):
+    assert emulated.frame_conv_mac_tile(33) == 128
+    assert emulated.frame_conv_mac_tile(454) == 32
+    assert emulated.frame_conv_mac_tile(455) == 0
+    for p in (256, 1000, 131072):
+        assert emulated.frames_rfft_f32(None, None, None, 1, 1, p, None) == -1
+        assert emulated.irfft_valid_f32(None, None, None, 1, 1, p, None) == -1
