@@ -4,38 +4,73 @@
 
 1. Environment: torch and CUDA versions, nvcc, the card's name and power
    limit.  Exits non-zero, printing no result, without a card.
-2. Build: compiles csrc/frame_conv.cu with nvcc (first use).
-3. Each kernel against its plain PyTorch version on the card, at the
-   headline shapes (C = 8 channel-streams, K = 88 frames, p = 32768,
+2. Build: compiles every csrc/*.cu library with nvcc, one process per
+   source, all started together.
+3. Each frame kernel against its plain PyTorch version on the card, at
+   the headline shapes (C = 8 channel-streams, K = 88 frames, p = 32768,
    P = 33, f32); max |diff| <= 2e-5 x max |plain| (x max(1, .) for the
-   inverse), and both times (CUDA events, median of 7 after warm-up).
-4. The folded chain at the 1M-tap headline IR: (a) 4 streams x 10 s in
+   inverse), and the kernel's, the plain version's and the library call's
+   times (CUDA events, median of 7 after warm-up).
+4. The folded headline chain at the 1M-tap IR: (a) 4 streams x 10 s in
    f32 through the kernels against the plain path in f64 on the card,
-   relative RMS <= 2e-5, finite, every kernel launched; (b) 64 streams x
-   60 s: realtime factor (median of 3 calls after warm-up, fenced by
-   torch.cuda.synchronize()), spread and peak device memory.
-5. A JSON line of the kernels, then the result line.
+   relative RMS <= 2e-5, finite, every frame kernel launched; (b) 64
+   streams x 60 s: realtime factor (median of 3 calls after warm-up,
+   fenced by torch.cuda.synchronize()), spread and peak device memory.
+5. The quantizer kernel against its plain version on the card at R = 512
+   rows x N = 2048 samples, all five modes in f32 and f64: max |diff| == 0
+   and equal states out, and a call split at a ragged tile equal to the
+   whole call; the f64 kernel against the reference binary's vectors
+   (tests/ref_harness/vectors/shapers.json, psycho.json) bit for bit; its
+   time at config6's shape (R = 512, N = 480,000, f32, lattice_fir), with
+   one warp and in f64, the time a step of each mode, and the SM clock
+   while it runs.
+6. Bench config6 (384 kHz, 768k-tap IR, soft clip, lattice dither to 24
+   bits): (a) 4 streams x 1.25 s: the pre-quantizer signal of the f32
+   kernel path against the f64 plain path on the card, relative RMS
+   <= 2e-5; the dithered output finite, on the 24-bit grid and within the
+   fir ladder's bound; every one of the four kernels launched; (b) 256
+   streams x 1.25 s: realtime factor, spread, peak memory and the
+   quantizer's share of the call.
+7. A JSON line of the kernels, the card's name and power limit, then the
+   result line.
 Any failure raises, and the script exits non-zero.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
-from convopeq_tpu_torch import headline
+from convopeq_tpu_torch import config6, headline
+from convopeq_tpu_torch.device import card_description
+from convopeq_tpu_torch.models import dither
 from convopeq_tpu_torch.ops import _build
 from convopeq_tpu_torch.ops import frame_conv_kernels as fk
+from convopeq_tpu_torch.ops import quantize_kernels as qk
 
 C, K, P_SIZE, NPARTS = 8, 88, 32768, 33
-SOURCE = "convopeq_tpu_torch/csrc/frame_conv.cu"
+QR, QN = 512, 2048                  # quantizer check shape (the plain loop)
+VECTORS = Path(__file__).resolve().parent / "tests" / "ref_harness" / "vectors"
+SOURCES = {"frames_rfft": "convopeq_tpu_torch/csrc/frame_conv.cu",
+           "causal_mac": "convopeq_tpu_torch/csrc/frame_conv.cu",
+           "irfft_valid": "convopeq_tpu_torch/csrc/frame_conv.cu",
+           "error_feedback_quantize":
+               "convopeq_tpu_torch/csrc/error_feedback_quantize.cu"}
 REPLACES = {
     "frames_rfft": "convopeq_tpu/ops/pallas_gemm_fft.py:335",
     "causal_mac": "convopeq_tpu/ops/pallas_gemm_fft.py:543",
     "irfft_valid": "convopeq_tpu/ops/pallas_gemm_fft.py:158",
+    "error_feedback_quantize": "convopeq_tpu/ops/pallas_kernels.py:116",
 }
+# one H100 SXM (NVIDIA's data sheet): device memory rate, f32 rate outside
+# the tensor cores
+MEM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
 
 
 def check(cond, what):
@@ -59,31 +94,37 @@ def time_ms(fn, reps=7):
     return statistics.median(times)
 
 
+def bound(nbytes, ops):
+    """(least ms, what binds it) for `nbytes` moved and `ops` f32 ops."""
+    t_bytes, t_ops = nbytes / MEM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_environment():
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is False")
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
           f"python {sys.version.split()[0]}")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True)
     print(nvcc.stdout.strip().splitlines()[-1])
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_description()
     print(card)
-    if not torch.cuda.is_available():
-        raise SystemExit("torch.cuda.is_available() is False")
     return card
 
 
 def phase_build(card):
     t0 = time.perf_counter()
-    path, log = _build.build()
-    fk_lib = _build.frame_conv_lib()
-    check(fk_lib is not None, "library loads")
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {path.name} [{card}]")
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
+    built = _build.build_all()
+    for name in built:
+        check(_build.load(name) is not None, f"library {name} loads")
+    print(f"build (one nvcc a source, in parallel): "
+          f"{time.perf_counter() - t0:.2f} s -> "
+          f"{[p.name for p, _ in built.values()]} [{card}]")
+    for _, log in built.values():
+        for line in log.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print("  ptxas:", line.strip())
 
 
 def phase_kernels(card):
@@ -97,16 +138,28 @@ def phase_kernels(card):
     X_plain = fk.frames_rfft_plain(frames)
     Y_plain = fk.causal_mac_plain(X_plain, H)
     y_plain = fk.irfft_valid_plain(Y_plain)
+    osa = torch.cat([torch.cat([torch.zeros_like(frames[:, :1]),
+                                frames[:, :-1]], dim=1), frames], dim=-1)
+    B = P_SIZE + 1
+    n_fft = 2 * P_SIZE
+    fft_ops = C * K * 2.5 * n_fft * math.log2(n_fft)
+    mac_ops = 8 * B * C * sum(min(k + 1, NPARTS) for k in range(K))
+    spec_bytes, sig_bytes = C * K * B * 8, C * K * P_SIZE * 4
     cases = [
         ("frames_rfft", lambda: fk.frames_rfft(frames),
-         lambda: fk.frames_rfft_plain(frames), X_plain),
+         lambda: fk.frames_rfft_plain(frames), X_plain,
+         lambda: torch.fft.rfft(osa, dim=-1),
+         bound(sig_bytes + spec_bytes, fft_ops)),
         ("causal_mac", lambda: fk.causal_mac(X_plain, H),
-         lambda: fk.causal_mac_plain(X_plain, H), Y_plain),
+         lambda: fk.causal_mac_plain(X_plain, H), Y_plain, None,
+         bound(2 * spec_bytes + NPARTS * B * 8, mac_ops)),
         ("irfft_valid", lambda: fk.irfft_valid(Y_plain),
-         lambda: fk.irfft_valid_plain(Y_plain), y_plain),
+         lambda: fk.irfft_valid_plain(Y_plain), y_plain,
+         lambda: torch.fft.irfft(Y_plain, n=n_fft, dim=-1),
+         bound(spec_bytes + sig_bytes, fft_ops)),
     ]
     rows = {}
-    for name, kern, plain, ref in cases:
+    for name, kern, plain, ref, library, (bound_ms, bound_by) in cases:
         out = kern()
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
@@ -116,41 +169,46 @@ def phase_kernels(card):
         tol = 2e-5 * scale
         ms = time_ms(kern)
         plain_ms = time_ms(plain)
+        library_ms = time_ms(library) if library else None
         print(f"{name}: max|diff| {err:.3e} (tol {tol:.3e}, rel "
               f"{err / scale:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} "
-              f"ms  (C={C} K={K} p={P_SIZE} P={NPARTS}) [{card}]")
+              f"ms  library {library_ms} ms  bound {bound_ms:.4f} ms "
+              f"({bound_by})  (C={C} K={K} p={P_SIZE} P={NPARTS}) [{card}]")
         check(err <= tol and torch.isfinite(out).all(),
               f"{name} disagrees with its plain version")
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
     return rows
 
 
-def phase_slice(card):
+def phase_headline(card):
     t0 = time.perf_counter()
     chain32 = headline.headline_chain("cuda", torch.float32)
     chain64 = headline.headline_chain("cuda", torch.float64)
     plan = chain32.convolver.plans[0].layers[0]
-    print(f"prepare (host fold, x2): {time.perf_counter() - t0:.2f} s; "
-          f"combined IR {plan.length} taps, p={plan.part_size} "
+    print(f"headline prepare (host fold, x2): {time.perf_counter() - t0:.2f}"
+          f" s; combined IR {plan.length} taps, p={plan.part_size} "
           f"x{plan.num_parts} [{card}]")
 
     # (a) fidelity against the plain path in f64, counting launches
     x = headline.headline_input(4, 10.0, "cuda")
     fk.reset_launch_counts()
+    qk.reset_launch_counts()
     y32 = chain32(x)
     torch.cuda.synchronize()
-    launches = dict(fk.launch_counts)
+    launches = {**fk.launch_counts, **qk.launch_counts}
     y64 = chain64(x.double(), frame_mac="plain")
     rel = float(((y32.double() - y64).pow(2).mean()
                  / y64.pow(2).mean()).sqrt())
     finite = bool(torch.isfinite(y32).all())
-    print(f"slice 4x10s f32 kernels vs f64 plain: rel RMS {rel:.3e} "
+    print(f"headline 4x10s f32 kernels vs f64 plain: rel RMS {rel:.3e} "
           f"(tol 2e-5), finite {finite}, shape {tuple(y32.shape)}, "
           f"launches {launches} [{card}]")
-    check(y32.shape == x.shape and finite, "slice output finite, shaped")
-    check(rel <= 2e-5, "slice matches the f64 plain path")
-    check(all(v > 0 for v in launches.values()),
-          "every kernel launched on the main path")
+    check(y32.shape == x.shape and finite, "headline output finite, shaped")
+    check(rel <= 2e-5, "headline matches the f64 plain path")
+    check(all(launches[n] > 0 for n in fk.launch_counts),
+          "every frame kernel launched on the headline path")
     del x, y32, y64, chain64
 
     # (b) throughput at 64 streams x 60 s
@@ -160,13 +218,249 @@ def phase_slice(card):
     torch.cuda.reset_peak_memory_stats()
     walls = headline.measure(chain32, x, reps=3)
     peak = torch.cuda.max_memory_allocated()
+    report_rtf("headline", batch, seconds, walls, peak, card)
+
+
+def report_rtf(name, batch, seconds, walls, peak, card):
     med = statistics.median(walls)
-    rtf = batch * seconds / med
-    print(f"slice {batch}x{seconds:.0f}s f32: realtime factor {rtf:.1f} "
-          f"(median wall {med * 1e3:.2f} ms; walls "
-          f"{[round(w * 1e3, 2) for w in walls]} ms; RTF spread "
-          f"{batch * seconds / max(walls):.1f}..{batch * seconds / min(walls):.1f})"
-          f", peak device memory {peak / 2 ** 30:.2f} GiB [{card}]")
+    print(f"{name} {batch}x{seconds:g}s f32: realtime factor "
+          f"{batch * seconds / med:.1f} (median wall {med * 1e3:.2f} ms; "
+          f"walls {[round(w * 1e3, 2) for w in walls]} ms; RTF spread "
+          f"{batch * seconds / max(walls):.1f}.."
+          f"{batch * seconds / min(walls):.1f}), peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB [{card}]")
+
+
+def quantizer_ops(mode, order):
+    """f32 operations a sample (every multiply, add, min, max and round)."""
+    ops = 2 * order - 1                          # the feedback sum
+    if mode == "psycho":
+        return ops + 11
+    ops += 14 + (2 if mode != "fixed" else 0)    # dither term, quantize
+    if mode == "lattice":
+        ops += 6 * order
+    elif mode == "lattice_fir":
+        ops += 2 * order + 4 * (order - 1)
+    return ops
+
+
+def quantizer_bound(R, N, mode, order, itemsize):
+    """x, two uniforms and q a sample; the state in and out."""
+    return bound(R * N * 4 * itemsize + 2 * R * order * itemsize,
+                 R * N * quantizer_ops(mode, order))
+
+
+def phase_quantizer(card):
+    dev = torch.device("cuda")
+    k9 = dither.lattice_coeffs(config6.config6_bank())
+    sr = config6.SAMPLE_RATE
+    coeffs = {"psycho": dither.psycho_coeffs(sr, 24),
+              "fixed": dither.fixed4_coeffs(sr),
+              "fixed15": dither.fixed15_coeffs(sr),
+              "lattice": k9, "lattice_fir": k9}
+    h = dither.K_OUTPUT_HEADROOM
+    row = {}
+    for dt in (torch.float32, torch.float64):
+        bits = 24 if dt == torch.float32 else 16
+        scale, _ = dither.quant_scales(bits)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        x = torch.randn((QR, QN), generator=gen, device=dev, dtype=dt) * 0.3
+        u = torch.rand((QR, QN, 2), generator=gen, device=dev, dtype=dt)
+        for mode, c in coeffs.items():
+            s0 = (torch.rand((QR, len(c)), generator=gen, device=dev,
+                             dtype=dt) * 2 - 1) * (2 * scale)
+            q, s = qk.error_feedback_quantize(x, u, c, scale, h, mode, s0)
+            torch.cuda.synchronize()
+            qp, sp = qk.error_feedback_quantize_plain(x, u, c, scale, h,
+                                                      mode, s0)
+            err = float((q - qp).abs().max())
+            serr = float((s - sp).abs().max())
+            # a call split inside a tile, carrying the state, is the call
+            q1, s1 = qk.error_feedback_quantize(x[:, :1000].contiguous(),
+                                                u[:, :1000].contiguous(), c,
+                                                scale, h, mode, s0)
+            q2, s2 = qk.error_feedback_quantize(x[:, 1000:].contiguous(),
+                                                u[:, 1000:].contiguous(), c,
+                                                scale, h, mode, s1)
+            split_eq = bool(torch.equal(torch.cat([q1, q2], dim=1), q)
+                            and torch.equal(s2, s))
+            print(f"quantizer {mode} {str(dt)[6:]} {bits}-bit R={QR} N={QN}: "
+                  f"max|diff| {err:.3e}, state max|diff| {serr:.3e}, "
+                  f"split call equal {split_eq} [{card}]")
+            check(err == 0.0 and serr == 0.0 and torch.equal(q, qp)
+                  and torch.equal(s, sp),
+                  f"quantizer {mode} {dt} equals its plain version")
+            check(split_eq, f"quantizer {mode} {dt} carries its state")
+            if dt == torch.float32 and mode == "lattice_fir":
+                ms = time_ms(lambda: qk.error_feedback_quantize(
+                    x, u, c, scale, h, mode, s0))
+                plain_ms = time_ms(lambda: qk.error_feedback_quantize_plain(
+                    x, u, c, scale, h, mode, s0), reps=3)
+                bound_ms, bound_by = quantizer_bound(QR, QN, mode, len(c), 4)
+                row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": None}
+                print(f"quantizer lattice_fir f32 R={QR} N={QN}: kernel "
+                      f"{ms:.3f} ms  plain {plain_ms:.1f} ms  bound "
+                      f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
+
+    # the f64 kernel against the reference binary (built -ffp-contract=off)
+    v = json.loads((VECTORS / "shapers.json").read_text())
+    pv = json.loads((VECTORS / "psycho.json").read_text())
+    cases = []
+    for ch, side in ((0, "l"), (1, "r")):
+        n = len(v[f"input_{side}"])
+        xo = dither.xoshiro_uniforms(2 * n, channel=ch).reshape(n, 2)
+        seeds15 = dither.fixed15_xoshiro_seeds(v["sample_rate"], 16, ch)
+        xf15 = dither.xoshiro_uniforms(2 * n, seeds=seeds15).reshape(n, 2)
+        for bits in (16, 24):
+            cases.append((f"fixed4_{bits}bit_{side}", v, side, xo,
+                          dict(shaper_type=dither.FIXED4, bit_depth=bits)))
+        cases.append((f"fixed15_16bit_{side}", v, side, xf15,
+                      dict(shaper_type=dither.FIXED15, bit_depth=16)))
+        cases.append((f"lattice_16bit_{side}", v, side, xo,
+                      dict(shaper_type=dither.ADAPTIVE9, bit_depth=16,
+                           adaptive_coeffs=[0.2, -0.15, 0.1, -0.08, 0.06,
+                                            -0.04, 0.03, -0.02, 0.01],
+                           lattice_ladder="reference")))
+        up = dither.psycho_fallback_uniforms(2 * n, ch,
+                                             pv["seed"]).reshape(n, 2)
+        for khz, bits in ((48, 16), (48, 24), (384, 24)):
+            cases.append((f"psycho_{khz}k_{bits}bit_{side}", pv, side, up,
+                          dict(shaper_type=dither.PSYCHOACOUSTIC,
+                               bit_depth=bits, sample_rate=khz * 1000.0)))
+    for key, src, side, u, kw in cases:
+        kw.setdefault("sample_rate", float(src.get("sample_rate", 48000)))
+        x = torch.tensor(src[f"input_{side}"], dtype=torch.float64,
+                         device=dev)
+        q = dither.apply_dither(x, uniforms=torch.from_numpy(u).to(dev),
+                                headroom=src["headroom"], **kw)
+        got = q.cpu().numpy()
+        check(np.array_equal(got, np.asarray(src[key])),
+              f"f64 kernel reproduces the reference binary's {key}")
+    print(f"quantizer f64 kernel: {len(cases)} reference-binary vectors of "
+          f"2048 samples reproduced bit for bit [{card}]")
+
+    # the kernel at config6's shape
+    R, N = 2 * config6.BATCH, int(config6.SAMPLE_RATE * config6.SECONDS)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((R, N), generator=gen, device=dev) * 0.1
+    u = torch.rand((R, N, 2), generator=gen, device=dev)
+    scale, _ = dither.quant_scales(config6.BIT_DEPTH)
+    ms = time_ms(lambda: qk.error_feedback_quantize(
+        x, u, k9, scale, h, "lattice_fir"), reps=5)
+    b_ms, b_by = quantizer_bound(R, N, "lattice_fir", len(k9), 4)
+    print(f"quantizer lattice_fir f32 at config6's shape R={R} N={N}: "
+          f"{ms:.3f} ms ({R * N / ms / 1e6:.3f} G samples/s), bound "
+          f"{b_ms:.3f} ms ({b_by}), {N / ms:.0f} steps/ms "
+          f"[{card}]")
+    # one warp instead of 16, and f64: what the loop over time costs
+    ms_warp = time_ms(lambda: qk.error_feedback_quantize(
+        x[:32], u[:32], k9, scale, h, "lattice_fir"), reps=3)
+    x64, u64 = x.double(), u.double()
+    ms_f64 = time_ms(lambda: qk.error_feedback_quantize(
+        x64, u64, k9, scale, h, "lattice_fir"), reps=3)
+    print(f"quantizer lattice_fir N={N}: f32 R=32 (one warp) {ms_warp:.3f} "
+          f"ms, f64 R={R} {ms_f64:.3f} ms; {ms / N * 1e6:.1f} ns a step at "
+          f"f32 R={R} [{card}]")
+    step_ns = {mode: time_ms(lambda: qk.error_feedback_quantize(
+        x, u, c, scale, h, mode), reps=3) / N * 1e6
+        for mode, c in coeffs.items()}
+    print(f"quantizer f32 R={R} N={N}, ns a step by mode: "
+          f"{ {m: round(v, 1) for m, v in step_ns.items()} } [{card}]")
+    # the SM clock while ~1 s of quantizer calls is queued on the card
+    for _ in range(8):
+        qk.error_feedback_quantize(x, u, k9, scale, h, "lattice_fir")
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    print(f"SM clock during the quantizer (now, max): {clocks} [{card}]")
+    row.update(config6_ms=ms, config6_bound_ms=b_ms)
+    return row
+
+
+def ladder_bound_lsb(k9):
+    """|q - y h| in LSB for the fir ladder: |feedback| <= sum|k| times the
+    state bound prod(1 + |k|) x 2 LSB, plus the rounding and the TPDF
+    dither (< 1.5 LSB)."""
+    k = np.abs(k9)
+    return float(k.sum() * np.prod(1.0 + k) * 2.0 + 1.5)
+
+
+def phase_config6(card):
+    t0 = time.perf_counter()
+    chain32 = config6.config6_chain("cuda", torch.float32)
+    chain64 = config6.config6_chain("cuda", torch.float64)
+    plan = chain32.convolver.plans[0].layers[0]
+    k9 = config6.config6_bank()
+    print(f"config6 prepare (host fold, x2): {time.perf_counter() - t0:.2f} "
+          f"s; combined IR {plan.length} taps, p={plan.part_size} "
+          f"x{plan.num_parts}; bank {np.round(k9, 6).tolist()} [{card}]")
+
+    # (a) 4 streams: pre-quantizer fidelity, the dithered output, launches
+    x = config6.config6_input(4, config6.SECONDS, "cuda")
+    gen = torch.Generator(device=x.device).manual_seed(8)
+    fk.reset_launch_counts()
+    qk.reset_launch_counts()
+    y32 = chain32(x)
+    q = config6.dither(y32, k9, gen)
+    torch.cuda.synchronize()
+    launches = {**fk.launch_counts, **qk.launch_counts}
+    y64 = chain64(x.double(), frame_mac="plain")
+    rel = float(((y32.double() - y64).pow(2).mean()
+                 / y64.pow(2).mean()).sqrt())
+    print(f"config6 pre-quantizer 4x{config6.SECONDS:g}s f32 kernels vs f64 "
+          f"plain: rel RMS {rel:.3e} (tol 2e-5), shape {tuple(y32.shape)} "
+          f"[{card}]")
+    check(bool(torch.isfinite(y32).all()) and y32.shape == x.shape,
+          "config6 pre-quantizer finite, shaped")
+    check(rel <= 2e-5, "config6 pre-quantizer matches the f64 plain path")
+    lsb = 2.0 ** (config6.BIT_DEPTH - 1)
+    grid = q.double() * lsb
+    dev_lsb = (q.double() - y32.double() * dither.K_OUTPUT_HEADROOM) * lsb
+    lim = ladder_bound_lsb(dither.lattice_coeffs(k9))
+    rms_lsb = float(dev_lsb.pow(2).mean().sqrt())
+    max_lsb = float(dev_lsb.abs().max())
+    print(f"config6 dithered output: RMS of q - y h {rms_lsb:.4f} LSB, max "
+          f"{max_lsb:.4f} LSB (ladder bound {lim:.4f}), RMS of q "
+          f"{float(grid.pow(2).mean().sqrt()):.1f} LSB, launches "
+          f"{launches} [{card}]")
+    check(bool(torch.isfinite(q).all()) and q.shape == x.shape,
+          "config6 output finite, shaped")
+    check(bool((grid == torch.round(grid)).all()), "output on the 24-bit grid")
+    check(max_lsb <= lim, "output within the fir ladder's bound")
+    check(all(v > 0 for v in launches.values()),
+          "every kernel launched on the config6 path")
+    del x, y32, y64, q, chain64, grid, dev_lsb
+
+    # (b) 256 streams x 1.25 s
+    batch = config6.BATCH
+    x = config6.config6_input(batch, config6.SECONDS, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = config6.measure(chain32, x, k9, reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    report_rtf("config6", batch, config6.SECONDS, walls, peak, card)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    y = chain32(x)
+    ev[1].record()
+    u = torch.rand(y.shape + (2,), generator=gen, dtype=y.dtype,
+                   device=y.device)
+    ev[2].record()
+    dither.apply_dither(y, dither.ADAPTIVE9, config6.SAMPLE_RATE,
+                        config6.BIT_DEPTH, uniforms=u, adaptive_coeffs=k9)
+    ev[3].record()
+    torch.cuda.synchronize()
+    chain_ms, rng_ms, quant_ms = (ev[i].elapsed_time(ev[i + 1])
+                                  for i in range(3))
+    total = chain_ms + rng_ms + quant_ms
+    print(f"config6 {batch}x{config6.SECONDS:g}s call split (CUDA events): "
+          f"chain {chain_ms:.2f} ms, uniforms {rng_ms:.2f} ms, quantizer "
+          f"{quant_ms:.2f} ms = {100 * quant_ms / total:.1f}% of "
+          f"{total:.2f} ms [{card}]")
     return launches
 
 
@@ -174,11 +468,14 @@ def main():
     card = phase_environment()
     phase_build(card)
     rows = phase_kernels(card)
-    launches = phase_slice(card)
+    phase_headline(card)
+    rows["error_feedback_quantize"] = phase_quantizer(card)
+    launches = phase_config6(card)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name], **rows[name]}
-        for name in ("frames_rfft", "causal_mac", "irfft_valid")]}))
+        for name in SOURCES]}))
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
-"""Build the port's prepared convolver state from the JAX package's.
+"""Build the port's prepared state from the JAX package's.
 
-The caller turns the JAX state into plain values first (the port never
-sees a JAX object): each channel's `layer_spectra` as numpy arrays, and
-the plan as plain numbers.  From the same prepared state both packages
-compute the same output.
+The caller turns the JAX objects into plain values first (the port never
+sees a JAX object): each channel's `layer_spectra` as numpy arrays and
+the plan as plain numbers; a learned coefficient bank store as its dict
+of plain numbers (`AdaptiveCoefficientBanks.to_dict()`).  From the same
+prepared state both packages compute the same output.
 """
 from __future__ import annotations
 
@@ -12,12 +13,13 @@ import torch
 
 from .device import resolve_device
 from .models.convolver import StereoConvolverState
+from .models.learner import AdaptiveCoefficientBanks
 from .models.nuc import NUCLayerPlan, NUCPlan, NUCState
 
 
 def stereo_state_from_arrays(left_spectra, right_spectra, layers,
                              latency: int, block_size: int, ir_len: int,
-                             device="cpu") -> StereoConvolverState:
+                             device="cuda") -> StereoConvolverState:
     """left_spectra / right_spectra: per layer a (num_parts, part_size+1)
     complex numpy array.  layers: per layer (offset, length, part_size,
     num_parts, gain), shared by both channels."""
@@ -45,3 +47,9 @@ def stereo_state_from_arrays(left_spectra, right_spectra, layers,
 
     return StereoConvolverState(left=side(left_spectra),
                                 right=side(right_spectra))
+
+
+def banks_from_dict(banks: dict) -> AdaptiveCoefficientBanks:
+    """banks: {bank index: nine reflection coefficients}, the JAX store's
+    `to_dict()` (keys str or int, values lists or arrays)."""
+    return AdaptiveCoefficientBanks.from_dict(banks)

@@ -1,6 +1,8 @@
 """Explicit device resolution and the port's stated numeric precision."""
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -21,3 +23,13 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def card_description() -> str:
+    """The card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them for
+    card 0.  Every measured number is stated beside it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]

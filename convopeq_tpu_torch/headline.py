@@ -44,7 +44,7 @@ def headline_eq() -> EQParams:
     return eqp
 
 
-def headline_chain(device, dtype=torch.float32, ir_len: int = IR_LEN,
+def headline_chain(device="cuda", dtype=torch.float32, ir_len: int = IR_LEN,
                    seed: int = 0) -> FoldedChain:
     """The prepared folded chain (rebuild-time work on the host)."""
     cfg = ChainConfig(sample_rate=SAMPLE_RATE)
@@ -54,8 +54,8 @@ def headline_chain(device, dtype=torch.float32, ir_len: int = IR_LEN,
     return FoldedChain(cfg, state)
 
 
-def headline_input(batch: int, seconds: float, device, dtype=torch.float32,
-                   seed: int = 1):
+def headline_input(batch: int, seconds: float, device="cuda",
+                   dtype=torch.float32, seed: int = 1):
     """(batch, 2, seconds*48k) noise x0.25, made on `device`."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)

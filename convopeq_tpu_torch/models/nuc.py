@@ -177,7 +177,7 @@ class NUCState:
 
 
 def nuc_prepare_uniform(ir, part_size: int, block_size: int = 512,
-                        device="cpu") -> NUCState:
+                        device="cuda") -> NUCState:
     """Single-layer uniform plan: plain exact partitioned convolution.
 
     The offline throughput plan (models/chain.py::throughput_partition_size):

@@ -1,9 +1,18 @@
-"""Build and bind the port's CUDA kernels (csrc/frame_conv.cu).
+"""Build and bind the port's CUDA kernels (the `.cu` sources under csrc/).
 
-nvcc compiles the source into a shared library with a plain C interface,
-bound with ctypes.  The build happens at first use, never at import, and
-is keyed by a hash of the source: `convopeq_tpu_torch/_build/` holds one
-library per source version.  A failed build raises with nvcc's stderr.
+Each source is its own library: nvcc compiles it into a shared library
+with a plain C interface, bound with ctypes, with the source's own nvcc
+flags and signature table.  The build happens at first use, never at
+import, and is keyed by a hash of the source and its flags:
+`convopeq_tpu_torch/_build/` holds one library per source version.  A
+failed build raises with nvcc's stderr.  `build_all` starts one nvcc per
+source at once and waits for all of them.
+
+The quantizer library is built with `-fmad=false`: its error-feedback
+loops are chaotic at the ULP level, and a contracted multiply-add flips
+a rounding decision within a few hundred samples, so the kernel must
+round every multiply and every add on its own, as its plain PyTorch
+version does.
 """
 from __future__ import annotations
 
@@ -13,21 +22,45 @@ import os
 import shutil
 import subprocess
 import sys
+from dataclasses import dataclass
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "frame_conv.cu"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    "frames_rfft_f32": [_P, _P, _P, _I, _I, _I, _P],
-    "irfft_valid_f32": [_P, _P, _P, _I, _I, _I, _P],
-    "causal_mac_c64": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "frame_conv_mac_tile": [_I],
+_D = ctypes.c_double
+_DP = ctypes.POINTER(ctypes.c_double)
+
+
+@dataclass(frozen=True)
+class Library:
+    name: str
+    source: Path
+    flags: tuple
+    signatures: dict
+
+
+_EFQ_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _DP, _I, _D, _D, _P]
+
+LIBRARIES = {
+    "frame_conv": Library(
+        "frame_conv", _PKG / "csrc" / "frame_conv.cu", NVCC_FLAGS, {
+            "frames_rfft_f32": [_P, _P, _P, _I, _I, _I, _P],
+            "irfft_valid_f32": [_P, _P, _P, _I, _I, _I, _P],
+            "causal_mac_c64": [_P, _P, _P, _I, _I, _I, _I, _P],
+            "frame_conv_mac_tile": [_I],
+        }),
+    "error_feedback_quantize": Library(
+        "error_feedback_quantize",
+        _PKG / "csrc" / "error_feedback_quantize.cu",
+        NVCC_FLAGS + ("-fmad=false",), {
+            "error_feedback_quantize_f32": _EFQ_ARGS,
+            "error_feedback_quantize_f64": _EFQ_ARGS,
+        }),
 }
 
 _loaded: dict = {}
@@ -44,39 +77,64 @@ def _nvcc() -> str:
                        "machine with the card, with the CUDA toolkit")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libframe_conv_{digest}.so"
+def library_path(name: str) -> Path:
+    lib = LIBRARIES[name]
+    h = hashlib.sha256(lib.source.read_bytes())
+    h.update(" ".join(lib.flags).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernels if this source version is not built yet.
+def _start(name: str):
+    """Start nvcc for `name` unless built; returns (path, process or None,
+    temporary output)."""
+    path = library_path(name)
+    if path.exists():
+        return path, None, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    lib = LIBRARIES[name]
+    cmd = [_nvcc(), *lib.flags, "-o", str(tmp), str(lib.source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return path, proc, tmp
+
+
+def _finish(path, proc, tmp) -> str:
+    if proc is None:
+        return ""
+    _out, err = proc.communicate()
+    if proc.returncode != 0:
+        print(err, file=sys.stderr)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(proc.args)}\n{err}")
+    os.replace(tmp, path)
+    return err
+
+
+def build(name: str) -> tuple[Path, str]:
+    """Compile library `name` if this source version is not built yet.
     Returns (library path, nvcc's stderr: the ptxas register and shared
     memory report, empty when the library was already there)."""
-    lib = library_path()
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        print(proc.stderr, file=sys.stderr)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stderr
+    path, proc, tmp = _start(name)
+    return path, _finish(path, proc, tmp)
 
 
-def frame_conv_lib() -> ctypes.CDLL:
-    """The bound kernel library, built on first call."""
-    lib = _loaded.get("frame_conv")
+def build_all() -> dict:
+    """Build every library, one nvcc per source, all started together.
+    Returns {name: (path, nvcc stderr)}."""
+    started = {name: _start(name) for name in LIBRARIES}
+    return {name: (s[0], _finish(*s)) for name, s in started.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library `name`, built on first call."""
+    lib = _loaded.get(name)
     if lib is None:
-        path, _ = build()
+        path, _ = build(name)
         lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+        for fn_name, argtypes in LIBRARIES[name].signatures.items():
+            fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _loaded["frame_conv"] = lib
+        _loaded[name] = lib
     return lib

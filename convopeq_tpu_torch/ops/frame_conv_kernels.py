@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import torch
 
-from ._build import frame_conv_lib
+from ._build import load
 
 launch_counts = {"frames_rfft": 0, "causal_mac": 0, "irfft_valid": 0}
 
@@ -126,7 +126,7 @@ def frames_rfft(frames):
     _check_cuda(frames, "frames_rfft", torch.float32, 3)
     C, K, p = frames.shape
     _check_part(p)
-    lib = frame_conv_lib()
+    lib = load("frame_conv")
     X = torch.empty((C, K, p + 1), dtype=torch.complex64,
                     device=frames.device)
     scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex64,
@@ -151,7 +151,7 @@ def causal_mac(X, H):
     P = H.shape[0]
     if H.shape[1] != B:
         raise ValueError(f"causal_mac: H has {H.shape[1]} bins, X has {B}")
-    lib = frame_conv_lib()
+    lib = load("frame_conv")
     if lib.frame_conv_mac_tile(P) == 0:
         raise ValueError(f"causal_mac: P={P} partitions exceed the "
                          "kernel's shared memory")
@@ -172,7 +172,7 @@ def irfft_valid(Y):
     C, K, bins = Y.shape
     p = bins - 1
     _check_part(p)
-    lib = frame_conv_lib()
+    lib = load("frame_conv")
     y = torch.empty((C, K, p), dtype=torch.float32, device=Y.device)
     scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex64,
                           device=Y.device)

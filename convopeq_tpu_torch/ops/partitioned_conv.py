@@ -28,7 +28,7 @@ _FRAME_STEPS = {
 
 
 def partition_spectra(h, part_size: int, num_parts: int | None = None,
-                      dtype=torch.float64, device="cpu"):
+                      dtype=torch.float64, device="cuda"):
     """Partition an impulse response and FFT each zero-padded partition.
 
     Mirrors SetImpulse's per-partition precompute

@@ -1,0 +1,73 @@
+// Host emulation of convopeq_tpu_torch/csrc/error_feedback_quantize.cu,
+// for checking the quantizer's arithmetic on a machine without a GPU.
+//
+// It compiles the source's per-sample step, its per-tile loop of one row,
+// its constants and its mode dispatch (EF_QUANTIZE_HOST_EMULATION), and
+// drives them as the kernel does: each row walks the signal in tiles of
+// kEfTile samples laid out as in shared memory, with the state carried in
+// an array from tile to tile.  It does not check the kernel's staging of
+// tiles, which runs only on the card.  Build with contraction off, as the
+// kernel is built with -fmad=false (one command):
+//   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC
+//       -o libquantize_emu.so tests/quantize_host_emulation.cpp
+#include <algorithm>
+#include <vector>
+
+#define EF_QUANTIZE_HOST_EMULATION 1
+#include "../convopeq_tpu_torch/csrc/error_feedback_quantize.cu"
+
+namespace {
+
+template <typename T>
+int emu_run(const T* x, const T* u, const T* state_in, T* q, T* state_out,
+            int R, int N, int mode, const double* coeffs, int order,
+            double scale, double headroom) {
+  const EfConsts<T> k = ef_consts<T>(coeffs, order, scale, headroom);
+  return ef_dispatch(mode, order, [&](auto m, auto o) -> int {
+    constexpr int M = decltype(m)::value;
+    constexpr int O = decltype(o)::value;
+    std::vector<T> xs(kEfLdx), us(kEfLdu), qs(kEfLdx);
+    for (int r = 0; r < R; ++r) {
+      T s[O];
+      for (int i = 0; i < O; ++i) s[i] = state_in[(size_t)r * O + i];
+      for (int t0 = 0; t0 < N; t0 += kEfTile) {
+        const int steps = std::min(kEfTile, N - t0);
+        const size_t off = (size_t)r * N + t0;
+        std::copy(x + off, x + off + steps, xs.begin());
+        std::copy(u + 2 * off, u + 2 * (off + steps), us.begin());
+        ef_run_tile<T, M, O>(xs.data(), us.data(), qs.data(), steps, s, k);
+        std::copy(qs.begin(), qs.begin() + steps, q + off);
+      }
+      for (int i = 0; i < O; ++i) state_out[(size_t)r * O + i] = s[i];
+    }
+    return 0;
+  });
+}
+
+}  // namespace
+
+extern "C" {
+
+int emu_tile() { return kEfTile; }
+
+int emu_supported(int mode, int order) {
+  return ef_dispatch(mode, order, [](auto, auto) { return 1; }) == 1;
+}
+
+int emu_quantize_f32(const float* x, const float* u, const float* state_in,
+                     float* q, float* state_out, int R, int N, int mode,
+                     const double* coeffs, int order, double scale,
+                     double headroom) {
+  return emu_run<float>(x, u, state_in, q, state_out, R, N, mode, coeffs,
+                        order, scale, headroom);
+}
+
+int emu_quantize_f64(const double* x, const double* u,
+                     const double* state_in, double* q, double* state_out,
+                     int R, int N, int mode, const double* coeffs, int order,
+                     double scale, double headroom) {
+  return emu_run<double>(x, u, state_in, q, state_out, R, N, mode, coeffs,
+                         order, scale, headroom);
+}
+
+}  // extern "C"

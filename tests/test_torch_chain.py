@@ -98,10 +98,11 @@ def test_folded_chain_rejects_unported_plans():
         with pytest.raises(ValueError):
             t_chain.prepare_folded_convolver(
                 np.ones(100), 512, t_nuc.FilterSpec(), cfg, None,
-                partition=partition)
+                partition=partition, device="cpu")
     with pytest.raises(ValueError):             # AIR tail mode
         t_chain.prepare_folded_convolver(
-            np.ones(20_000), 512, t_nuc.FilterSpec(tail_mode=0), cfg, None)
+            np.ones(20_000), 512, t_nuc.FilterSpec(tail_mode=0), cfg, None,
+            device="cpu")
 
 
 def test_import_leaves_jax_out():

@@ -133,7 +133,7 @@ def test_uniform_partitioned_conv_f64_matches_jax(p, n, taps):
     h = rng.normal(size=taps) * np.exp(-np.arange(taps) / (taps / 4))
     Hj = j_pc.partition_spectra(jnp.asarray(h), p, dtype=jnp.float64)
     yj = np.asarray(j_pc.uniform_partitioned_conv(jnp.asarray(x), Hj, p))
-    Ht = t_pc.partition_spectra(h, p, dtype=torch.float64)
+    Ht = t_pc.partition_spectra(h, p, dtype=torch.float64, device="cpu")
     np.testing.assert_allclose(Ht.numpy(), np.asarray(Hj), rtol=0,
                                atol=1e-12 * np.abs(np.asarray(Hj)).max())
     for frame_mac in ("auto", "plain"):
