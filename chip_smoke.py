@@ -31,7 +31,32 @@
    fir ladder's bound; every one of the four kernels launched; (b) 256
    streams x 1.25 s: realtime factor, spread, peak memory and the
    quantizer's share of the call.
-7. A JSON line of the kernels, the card's name and power limit, then the
+7. The fused P <= 8 kernel against its plain version on the card at the
+   shapes of this slice's paths (C = 8; p = 8192, P = 8, K = 352: the
+   prefilter at 60 s; p = 16384, P = 8, K = 176: the fused2 near layer;
+   p = 4096, P = 5, K = 118: the room IR's L1 at 10 s): max |diff| <=
+   1e-4 x max |plain| (tests/test_pallas.py's bound for the TPU kernel),
+   finite; the kernel's, the plain version's, the three frame kernels'
+   and the library transforms' times (CUDA events, median of 7) and the
+   bound.
+8. The prefilter chain (1M-tap IR as the reference's 3-layer NUC, the
+   EQ, DC blockers, output filter and HC/LC curve folded into an
+   8192 x 8 prefilter): (a) 4 streams x 10 s f32 kernels against the f64
+   plain path on the card, relative RMS <= 2e-5, the fused kernel and
+   the three frame kernels launched; (b) 64 x 60 s: realtime factor,
+   spread, peak memory, and the device time of the prefilter pass and of
+   each NUC layer (CUDA events).
+9. The headline with partition="fused2" (near 16384 x 8 on the fused
+   kernel, far 65536 x 15): (a) 4 x 10 s fidelity as in 8a, the fused
+   kernel launched; (b) the realtime factor at 64 x 60 s beside the
+   single-layer headline's of phase 4.
+10. The room-correction convolver (24,000-tap IR, 32 direct taps,
+   512 x 12 and 4096 x 5, spectrum filter on, mix 0.7 ramped from 1.0
+   over 0.1 s): (a) 4 x 10 s fidelity as in 8a, the fused kernel
+   launched; (b) the realtime factor at 256 x 10 s.
+11. A JSON line of the kernels (launches from the prefilter chain's run
+   of phase 8a, the quantizer's from config6's of phase 6a, and every
+   path's counts beside them), the card's name and power limit, then the
    result line.
 Any failure raises, and the script exits non-zero.
 """
@@ -46,12 +71,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from convopeq_tpu_torch import config6, headline
+from convopeq_tpu_torch import config6, headline, nuc3
 from convopeq_tpu_torch.device import card_description
 from convopeq_tpu_torch.models import dither
 from convopeq_tpu_torch.ops import _build
 from convopeq_tpu_torch.ops import frame_conv_kernels as fk
+from convopeq_tpu_torch.ops import fused_conv_kernels as fc
 from convopeq_tpu_torch.ops import quantize_kernels as qk
+from convopeq_tpu_torch.ops.partitioned_conv import uniform_partitioned_conv
 
 C, K, P_SIZE, NPARTS = 8, 88, 32768, 33
 QR, QN = 512, 2048                  # quantizer check shape (the plain loop)
@@ -60,13 +87,18 @@ SOURCES = {"frames_rfft": "convopeq_tpu_torch/csrc/frame_conv.cu",
            "causal_mac": "convopeq_tpu_torch/csrc/frame_conv.cu",
            "irfft_valid": "convopeq_tpu_torch/csrc/frame_conv.cu",
            "error_feedback_quantize":
-               "convopeq_tpu_torch/csrc/error_feedback_quantize.cu"}
+               "convopeq_tpu_torch/csrc/error_feedback_quantize.cu",
+           "fused_conv": "convopeq_tpu_torch/csrc/frame_conv.cu"}
 REPLACES = {
     "frames_rfft": "convopeq_tpu/ops/pallas_gemm_fft.py:335",
     "causal_mac": "convopeq_tpu/ops/pallas_gemm_fft.py:543",
     "irfft_valid": "convopeq_tpu/ops/pallas_gemm_fft.py:158",
     "error_feedback_quantize": "convopeq_tpu/ops/pallas_kernels.py:116",
+    "fused_conv": "convopeq_tpu/ops/pallas_gemm_fft.py:677",
 }
+# fused kernel check shapes (C, K, p, P): the prefilter at 60 s, the
+# fused2 near layer at 60 s, the room IR's L1 at 10 s
+FUSED_SHAPES = [(8, 352, 8192, 8), (8, 176, 16384, 8), (8, 118, 4096, 5)]
 # one H100 SXM (NVIDIA's data sheet): device memory rate, f32 rate outside
 # the tensor cores
 MEM_BYTES_S = 3.35e12
@@ -76,6 +108,16 @@ F32_OPS_S = 67e12
 def check(cond, what):
     if not cond:
         raise SystemExit(f"FAILED: {what}")
+
+
+def launches_now():
+    return {**fk.launch_counts, **fc.launch_counts, **qk.launch_counts}
+
+
+def reset_launches():
+    fk.reset_launch_counts()
+    fc.reset_launch_counts()
+    qk.reset_launch_counts()
 
 
 def time_ms(fn, reps=7):
@@ -123,7 +165,9 @@ def phase_build(card):
           f"{[p.name for p, _ in built.values()]} [{card}]")
     for _, log in built.values():
         for line in log.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            spills = "spill" in line and " 0 bytes spill stores, 0 bytes " \
+                "spill loads" not in f" {line.strip()}"
+            if "registers" in line or "Compiling entry" in line or spills:
                 print("  ptxas:", line.strip())
 
 
@@ -218,10 +262,11 @@ def phase_headline(card):
     torch.cuda.reset_peak_memory_stats()
     walls = headline.measure(chain32, x, reps=3)
     peak = torch.cuda.max_memory_allocated()
-    report_rtf("headline", batch, seconds, walls, peak, card)
+    return report_rtf("headline", batch, seconds, walls, peak, card)
 
 
 def report_rtf(name, batch, seconds, walls, peak, card):
+    """Prints the realtime factor of `walls` and returns it."""
     med = statistics.median(walls)
     print(f"{name} {batch}x{seconds:g}s f32: realtime factor "
           f"{batch * seconds / med:.1f} (median wall {med * 1e3:.2f} ms; "
@@ -229,6 +274,7 @@ def report_rtf(name, batch, seconds, walls, peak, card):
           f"{batch * seconds / max(walls):.1f}.."
           f"{batch * seconds / min(walls):.1f}), peak device memory "
           f"{peak / 2 ** 30:.2f} GiB [{card}]")
+    return batch * seconds / med
 
 
 def quantizer_ops(mode, order):
@@ -402,12 +448,11 @@ def phase_config6(card):
     # (a) 4 streams: pre-quantizer fidelity, the dithered output, launches
     x = config6.config6_input(4, config6.SECONDS, "cuda")
     gen = torch.Generator(device=x.device).manual_seed(8)
-    fk.reset_launch_counts()
-    qk.reset_launch_counts()
+    reset_launches()
     y32 = chain32(x)
     q = config6.dither(y32, k9, gen)
     torch.cuda.synchronize()
-    launches = {**fk.launch_counts, **qk.launch_counts}
+    launches = launches_now()
     y64 = chain64(x.double(), frame_mac="plain")
     rel = float(((y32.double() - y64).pow(2).mean()
                  / y64.pow(2).mean()).sqrt())
@@ -431,8 +476,8 @@ def phase_config6(card):
           "config6 output finite, shaped")
     check(bool((grid == torch.round(grid)).all()), "output on the 24-bit grid")
     check(max_lsb <= lim, "output within the fir ladder's bound")
-    check(all(v > 0 for v in launches.values()),
-          "every kernel launched on the config6 path")
+    check(all(launches[n] > 0 for n in [*fk.launch_counts, *qk.launch_counts]),
+          "every kernel of the config6 path launched")
     del x, y32, y64, q, chain64, grid, dev_lsb
 
     # (b) 256 streams x 1.25 s
@@ -464,16 +509,201 @@ def phase_config6(card):
     return launches
 
 
+def phase_fused_kernel(card):
+    """The fused kernel against its plain version at FUSED_SHAPES; the
+    row of the first shape (the prefilter's) goes into the JSON line."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = []
+    for C_, K_, p, P in FUSED_SHAPES:
+        frames = torch.randn((C_, K_, p), generator=gen, device=dev)
+        H = torch.complex(
+            torch.randn((P, p + 1), generator=gen, device=dev),
+            torch.randn((P, p + 1), generator=gen, device=dev))
+        ref = fc.fused_conv_plain(frames, H)
+        out = fc.fused_conv(frames, H)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(err <= 1e-4 * scale and bool(torch.isfinite(out).all()),
+              f"fused_conv disagrees with its plain version at p={p} P={P}")
+        osa = torch.cat([torch.cat([torch.zeros_like(frames[:, :1]),
+                                    frames[:, :-1]], dim=1), frames], dim=-1)
+        ms = time_ms(lambda: fc.fused_conv(frames, H))
+        plain_ms = time_ms(lambda: fc.fused_conv_plain(frames, H))
+        three_ms = time_ms(lambda: fk.irfft_valid(fk.causal_mac(
+            fk.frames_rfft(frames), H)))
+        library_ms = time_ms(lambda: torch.fft.irfft(
+            torch.fft.rfft(osa, dim=-1), n=2 * p, dim=-1))
+        n_fft = 2 * p
+        ops = (C_ * K_ * 2 * 2.5 * n_fft * math.log2(n_fft)
+               + 8 * (p + 1) * C_ * sum(min(k + 1, P) for k in range(K_)))
+        bound_ms, bound_by = bound(2 * C_ * K_ * p * 4 + P * (p + 1) * 8, ops)
+        print(f"fused_conv C={C_} K={K_} p={p} P={P}: max|diff| {err:.3e} "
+              f"(tol {1e-4 * scale:.3e}, rel {err / scale:.3e})  kernel "
+              f"{ms:.3f} ms  three frame kernels {three_ms:.3f} ms  plain "
+              f"{plain_ms:.3f} ms  library rfft+irfft {library_ms:.3f} ms  "
+              f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+        rows.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms, "three_kernel_ms": three_ms})
+        del frames, H, ref, out, osa
+    return rows[0]
+
+
+def fidelity(name, run32, run64, x, card, must_launch):
+    """Runs run32(x) with the counts set to 0 just before and read just
+    after, then run64(x in f64) on the plain path; checks the relative
+    RMS, the shape, finiteness and that every kernel in `must_launch`
+    was launched.  Returns the counts."""
+    reset_launches()
+    y32 = run32(x)
+    torch.cuda.synchronize()
+    launches = launches_now()
+    y64 = run64(x.double())
+    rel = float(((y32.double() - y64).pow(2).mean()
+                 / y64.pow(2).mean()).sqrt())
+    finite = bool(torch.isfinite(y32).all())
+    print(f"{name} {x.shape[0]}x{x.shape[-1] / 48000:g}s f32 kernels vs f64 "
+          f"plain: rel RMS {rel:.3e} (tol 2e-5), finite {finite}, shape "
+          f"{tuple(y32.shape)}, launches {launches} [{card}]")
+    check(y32.shape == x.shape and finite, f"{name} output finite, shaped")
+    check(rel <= 2e-5, f"{name} matches the f64 plain path")
+    check(all(launches[n] > 0 for n in must_launch),
+          f"{name}: every kernel of its path launched ({must_launch})")
+    return launches
+
+
+def phase_prefilter(card):
+    t0 = time.perf_counter()
+    chain32 = nuc3.prefilter_chain("cuda", torch.float32)
+    chain64 = nuc3.prefilter_chain("cuda", torch.float64)
+    layers = chain32.convolver.plans[0].layers
+    plan = [(lp.part_size, lp.num_parts, round(lp.gain, 4)) for lp in layers]
+    print(f"prefilter chain prepare (x2): {time.perf_counter() - t0:.2f} s; "
+          f"prefilter {chain32.prefilter_part} x "
+          f"{chain32.prefilter_spectra.shape[0]}; NUC {plan} [{card}]")
+    x = headline.headline_input(4, 10.0, "cuda")
+    launches = fidelity(
+        "prefilter chain", chain32, lambda v: chain64(v, frame_mac="plain"),
+        x, card, ["fused_conv", "frames_rfft", "causal_mac", "irfft_valid"])
+    del x, chain64
+
+    batch, seconds = 64, 60.0
+    x = headline.headline_input(batch, seconds, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = headline.measure(chain32, x, reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    rtf = report_rtf("prefilter chain", batch, seconds, walls, peak, card)
+
+    # device time of the prefilter pass and of each NUC layer (both
+    # channels), each on the input it sees in the chain
+    Hg, pg = chain32.prefilter_spectra, chain32.prefilter_part
+    state = chain32.convolver.state
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    xp = uniform_partitioned_conv(x, Hg, pg)
+    ev[1].record()
+    torch.cuda.synchronize()
+    split = {f"prefilter {pg}x{Hg.shape[0]}": ev[0].elapsed_time(ev[1])}
+    for li, lp in enumerate(layers):
+        ev[0].record()
+        for ch, side in enumerate((state.left, state.right)):
+            uniform_partitioned_conv(xp[:, ch], side.layer_spectra[li],
+                                     lp.part_size)
+        ev[1].record()
+        torch.cuda.synchronize()
+        split[f"L{li} {lp.part_size}x{lp.num_parts}"] = \
+            ev[0].elapsed_time(ev[1])
+    print(f"prefilter chain {batch}x{seconds:g}s device ms by pass (CUDA "
+          f"events): { {k: round(v, 3) for k, v in split.items()} }, sum "
+          f"{sum(split.values()):.2f} ms [{card}]")
+    # the prefilter's frames through the fused kernel and through the
+    # three frame kernels, at this shape
+    n = x.shape[-1]
+    K_ = -(-n // pg)
+    frames = torch.nn.functional.pad(x, (0, K_ * pg - n)).reshape(-1, K_, pg)
+    fused_ms = time_ms(lambda: fc.fused_conv(frames, Hg), reps=3)
+    three_ms = time_ms(lambda: fk.irfft_valid(fk.causal_mac(
+        fk.frames_rfft(frames), Hg)), reps=3)
+    print(f"prefilter pass C={frames.shape[0]} K={K_} p={pg} "
+          f"P={Hg.shape[0]}: fused kernel {fused_ms:.3f} ms, three frame "
+          f"kernels {three_ms:.3f} ms [{card}]")
+    return launches, rtf
+
+
+def phase_fused2(card, headline_rtf):
+    t0 = time.perf_counter()
+    chain32 = headline.headline_chain("cuda", torch.float32,
+                                      partition="fused2")
+    chain64 = headline.headline_chain("cuda", torch.float64,
+                                      partition="fused2")
+    plan = [(lp.part_size, lp.num_parts)
+            for lp in chain32.convolver.plans[0].layers]
+    print(f"fused2 headline prepare (host fold, x2): "
+          f"{time.perf_counter() - t0:.2f} s; layers {plan} [{card}]")
+    x = headline.headline_input(4, 10.0, "cuda")
+    launches = fidelity(
+        "fused2 headline", chain32, lambda v: chain64(v, frame_mac="plain"),
+        x, card, ["fused_conv", "frames_rfft", "causal_mac", "irfft_valid"])
+    del x, chain64
+    batch, seconds = 64, 60.0
+    x = headline.headline_input(batch, seconds, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = headline.measure(chain32, x, reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    rtf = report_rtf("fused2 headline", batch, seconds, walls, peak, card)
+    print(f"fused2 headline RTF {rtf:.1f} beside the single-layer folded "
+          f"headline's {headline_rtf:.1f} (this run) [{card}]")
+    return launches
+
+
+def phase_roomcorr(card):
+    conv32 = nuc3.roomcorr_convolver("cuda", torch.float32)
+    conv64 = nuc3.roomcorr_convolver("cuda", torch.float64)
+    plan = conv32.plans[0]
+    print(f"room-correction convolver: {plan.direct_taps} direct taps, "
+          f"layers {[(lp.part_size, lp.num_parts) for lp in plan.layers]}, "
+          f"mix {nuc3.ROOM_MIX} ramped from {nuc3.ROOM_MIX_FROM} over "
+          f"{nuc3.ROOM_RAMP_SECONDS} s [{card}]")
+    x = headline.headline_input(4, 10.0, "cuda")
+    launches = fidelity(
+        "room-correction convolver",
+        lambda v: nuc3.roomcorr_process(conv32, v),
+        lambda v: nuc3.roomcorr_process(conv64, v, frame_mac="plain"), x,
+        card, ["fused_conv", "frames_rfft", "causal_mac", "irfft_valid"])
+    del x, conv64
+    batch, seconds = 256, 10.0
+    x = headline.headline_input(batch, seconds, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = headline.measure(lambda v: nuc3.roomcorr_process(conv32, v), x,
+                             reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    report_rtf("room-correction convolver", batch, seconds, walls, peak, card)
+    return launches
+
+
 def main():
     card = phase_environment()
     phase_build(card)
     rows = phase_kernels(card)
-    phase_headline(card)
+    headline_rtf = phase_headline(card)
     rows["error_feedback_quantize"] = phase_quantizer(card)
-    launches = phase_config6(card)
+    config6_launches = phase_config6(card)
+    rows["fused_conv"] = phase_fused_kernel(card)
+    by_path = {"config6": config6_launches}
+    by_path["prefilter"], _ = phase_prefilter(card)
+    by_path["fused2"] = phase_fused2(card, headline_rtf)
+    by_path["roomcorr"] = phase_roomcorr(card)
+    launches = {**by_path["prefilter"], "error_feedback_quantize":
+                config6_launches["error_feedback_quantize"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name], **rows[name]}
+         "replaces": REPLACES[name], "launches": launches[name], **rows[name],
+         "launches_by_path": {k: v[name] for k, v in by_path.items()}}
         for name in SOURCES]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

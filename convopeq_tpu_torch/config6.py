@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .device import card_description, resolve_device
+from .headline import print_profile, profile_call
 from .models.chain import (ChainConfig, SemiFoldedChain,
                            prepare_semi_folded_convolver)
 from .models.dither import ADAPTIVE9, apply_dither
@@ -126,23 +127,10 @@ def measure(chain: SemiFoldedChain, x, k9, reps: int = 3,
 
 
 def profile(chain: SemiFoldedChain, x, k9, seed: int = 9):
-    """Device time of one render call after a warm-up (torch.profiler):
-    (wall ms, [(kernel name, device ms, launches)] by device time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
+    """Device time of one render call after a warm-up
+    (`headline.profile_call`)."""
     gen = torch.Generator(device=x.device).manual_seed(seed)
-    render(chain, x, k9, gen)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        render(chain, x, k9, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    return wall * 1e3, sorted(rows, key=lambda r: -r[1])
+    return profile_call(lambda: render(chain, x, k9, gen))
 
 
 def main(argv=()):
@@ -161,12 +149,7 @@ def main(argv=()):
         "device": torch.cuda.get_device_name(0),
         "card": card}))
     if "--profile" in argv:
-        wall, rows = profile(chain, x, k9)
-        busy = sum(r[1] for r in rows)
-        print(f"profiled call: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-              f"({100 * busy / wall:.1f}%) [{card}]")
-        for name, ms, count in rows:
-            print(f"  {ms:9.3f} ms  x{count:<4d} {name[:110]}")
+        print_profile("config6", *profile(chain, x, k9), card)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """Build the port's prepared state from the JAX package's.
 
 The caller turns the JAX objects into plain values first (the port never
-sees a JAX object): each channel's `layer_spectra` as numpy arrays and
-the plan as plain numbers; a learned coefficient bank store as its dict
-of plain numbers (`AdaptiveCoefficientBanks.to_dict()`).  From the same
+sees a JAX object): each channel's `layer_spectra` and direct-head taps
+as numpy arrays and the plan (with each layer's damping) as plain
+numbers; a folded prefilter's spectra as a numpy array; a learned
+coefficient bank store as its dict of plain numbers
+(`AdaptiveCoefficientBanks.to_dict()`).  From the same
 prepared state both packages compute the same output.
 """
 from __future__ import annotations
@@ -19,20 +21,25 @@ from .models.nuc import NUCLayerPlan, NUCPlan, NUCState
 
 def stereo_state_from_arrays(left_spectra, right_spectra, layers,
                              latency: int, block_size: int, ir_len: int,
-                             device="cuda") -> StereoConvolverState:
+                             direct=None, device="cuda"
+                             ) -> StereoConvolverState:
     """left_spectra / right_spectra: per layer a (num_parts, part_size+1)
     complex numpy array.  layers: per layer (offset, length, part_size,
-    num_parts, gain), shared by both channels."""
+    num_parts, gain) or (..., gain, damping), shared by both channels.
+    direct: None, or the (left, right) direct-head taps as 1-D arrays."""
     dev = resolve_device(device)
     plan = NUCPlan(
-        layers=tuple(NUCLayerPlan(offset=int(o), length=int(n),
-                                  part_size=int(p), num_parts=int(k),
-                                  gain=float(g), damping=None)
-                     for (o, n, p, k, g) in layers),
-        direct_taps=0, latency=int(latency), block_size=int(block_size),
+        layers=tuple(NUCLayerPlan(offset=int(t[0]), length=int(t[1]),
+                                  part_size=int(t[2]), num_parts=int(t[3]),
+                                  gain=float(t[4]),
+                                  damping=(None if len(t) < 6 or t[5] is None
+                                           else float(t[5])))
+                     for t in layers),
+        direct_taps=0 if direct is None else len(direct[0]),
+        latency=int(latency), block_size=int(block_size),
         ir_len=int(ir_len))
 
-    def side(spectra):
+    def side(spectra, taps):
         if len(spectra) != plan.num_layers:
             raise ValueError(f"{len(spectra)} spectra for "
                              f"{plan.num_layers} layers")
@@ -43,10 +50,29 @@ def stereo_state_from_arrays(left_spectra, right_spectra, layers,
                 raise ValueError(f"spectra shape {H.shape} does not match "
                                  f"layer {lp}")
             out.append(torch.from_numpy(H.copy()).to(dev))
-        return NUCState(plan=plan, layer_spectra=out)
+        if taps is not None:
+            taps = np.asarray(taps)
+            if taps.shape != (plan.direct_taps,):
+                raise ValueError(f"direct head of shape {taps.shape}, "
+                                 f"expected ({plan.direct_taps},)")
+            taps = torch.from_numpy(taps.copy()).to(dev)
+        return NUCState(plan=plan, layer_spectra=out, direct_ir=taps)
 
-    return StereoConvolverState(left=side(left_spectra),
-                                right=side(right_spectra))
+    left_taps, right_taps = (None, None) if direct is None else direct
+    return StereoConvolverState(left=side(left_spectra, left_taps),
+                                right=side(right_spectra, right_taps))
+
+
+def prefilter_from_arrays(spectra, part_size: int, device="cuda"):
+    """The JAX package's `prepare_fused_prefilter` result, (Hg, part_size)
+    with Hg as a (P, part_size+1) complex numpy array, as the port's
+    (tensor on `device`, part_size)."""
+    Hg = np.asarray(spectra)
+    if Hg.ndim != 2 or Hg.shape[1] != part_size + 1:
+        raise ValueError(f"prefilter spectra of shape {Hg.shape} for "
+                         f"partition {part_size}")
+    return torch.from_numpy(Hg.copy()).to(resolve_device(device)), \
+        int(part_size)
 
 
 def banks_from_dict(banks: dict) -> AdaptiveCoefficientBanks:

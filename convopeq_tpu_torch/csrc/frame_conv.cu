@@ -1,10 +1,14 @@
-// Overlap-save frame kernels of the folded convolution chain, for Hopper
-// (sm_90a), f32 on the FP32 CUDA cores.  Three kernels, one per TPU
-// Pallas kernel on the path (convopeq_tpu/ops/pallas_gemm_fft.py):
+// Overlap-save frame kernels of the partitioned convolution, for Hopper
+// (sm_90a), f32 on the FP32 CUDA cores.  Four kernels, one per TPU
+// Pallas kernel (convopeq_tpu/ops/pallas_gemm_fft.py):
 //
 //   frames_rfft   replaces _fwd_frames_kernel (rfft_frames_two_stage_pallas)
 //   causal_mac    replaces _mac_kernel        (causal_mac_grid_pallas)
 //   irfft_valid   replaces _inv_kernel        (irfft_valid_two_stage_pallas)
+//   fused_conv    replaces _fused_conv_kernel (fused_conv_frames_pallas):
+//                 the three above in one launch sequence for P <= 8
+//                 partitions, with X and Y kept out of device memory
+//                 (design at fused_rows, below)
 //
 // Layout: spectra in natural bin order, (C, K, p+1) interleaved complex64.
 // Frame f = c*K + k of channel-stream c.  The overlap-save frame of frame
@@ -20,17 +24,22 @@
 // with a per-block twiddle table from sincospif (exact arguments: every
 // angle is a dyadic multiple of pi).
 //
-// Every kernel loops over its work with a stride of blockDim.x, so its
-// result does not depend on the block size it is launched with.  With
-// FRAME_CONV_HOST_EMULATION defined, FC_LAUNCH, FC_DYNAMIC_SMEM and the
-// CUDA names used here come from a host emulator that runs each block as
-// one thread (tests/frame_conv_host_emulation.cpp).
+// Every kernel but fused_rows loops over its work with a stride of
+// blockDim.x, so its result does not depend on the block size it is
+// launched with; fused_rows keeps kMidElems values a thread in registers
+// and needs its block of kMidThreads.  With FRAME_CONV_HOST_EMULATION
+// defined, FC_LAUNCH, FC_DYNAMIC_SMEM and the CUDA names used here come
+// from the host emulator tests/frame_conv_host_emulation.cpp, which runs
+// every thread of a block as a coroutine that yields at each barrier.
 
 #ifndef FRAME_CONV_HOST_EMULATION
 #include <cuda_runtime.h>
 #define FC_LAUNCH(kernel, grid, block, smem, stream) \
     kernel<<<(grid), (block), (smem), (stream)>>>
 #define FC_DYNAMIC_SMEM(name) extern __shared__ float2 name[]
+#define FC_BOUNDS(threads, blocks) __launch_bounds__(threads, blocks)
+#else
+#define FC_BOUNDS(threads, blocks)
 #endif
 
 #include <stddef.h>
@@ -245,7 +254,10 @@ __global__ void inv_pass1(const float2* __restrict__ Y,
 }
 
 // Pass 2: block (f, group of R values nb): N1-point inverse FFT over ka,
-// real part of the outputs na >= N1/2 only, scaled by 1/N.
+// real part of the outputs na >= N1/2 only, scaled by 1/N.  The scratch
+// holds frame f as [nb][ka] (from inv_pass1) or, kByRows, as [ka][nb]
+// (from fused_rows, which writes in place of the forward's [k1][n2]).
+template <bool kByRows>
 __global__ void inv_pass2(const float2* __restrict__ scratch,
                           float* __restrict__ y, int p, int lN1, int N2,
                           int lR) {
@@ -256,10 +268,20 @@ __global__ void inv_pass2(const float2* __restrict__ scratch,
   float2* tw = b + R * ld;
   const int f = blockIdx.x;
   const int nb0 = blockIdx.y * R;
-  const float2* src = scratch + ((size_t)f * N2 + nb0) * N1;
   fill_twiddles(tw, lN1, 1.0f);
-  for (int e = threadIdx.x; e < R * N1; e += blockDim.x)
-    a[(e >> lN1) * ld + (e & (N1 - 1))] = src[e];
+  if (kByRows) {
+    // neighbouring threads take neighbouring nb: contiguous reads
+    const float2* src = scratch + (size_t)f * N1 * N2 + nb0;
+    for (int e = threadIdx.x; e < R * N1; e += blockDim.x) {
+      const int ka = e >> lR;
+      const int r = e & (R - 1);
+      a[r * ld + ka] = src[(size_t)ka * N2 + r];
+    }
+  } else {
+    const float2* src = scratch + ((size_t)f * N2 + nb0) * N1;
+    for (int e = threadIdx.x; e < R * N1; e += blockDim.x)
+      a[(e >> lN1) * ld + (e & (N1 - 1))] = src[e];
+  }
   const float2* res = fft_rows(a, b, tw, lN1, lR, ld);
   const float scale = 1.0f / (float)(N1 * N2);
   const int hA = N1 >> 1;
@@ -313,6 +335,152 @@ __global__ void causal_mac_kernel(const float2* __restrict__ X,
   }
 }
 
+// ---- fused convolution, P <= 8: frames (C, K, p) -> y (C, K, p) ------
+// y[c,k,:] = valid half of irfft(sum_{j<P, j<=k} X[c,k-j,:] H[j,:]).
+//
+// On the TPU the whole pipeline ran per frame tile in VMEM, with a ring
+// of the last 16 frames' spectra.  Here one frame's spectrum at
+// p = 8192 is 128 KB, and P of them per channel-stream exceed a block's
+// shared memory, so the work is cut by bin group instead of by frame:
+//
+//   1. fwd_pass1 (as frames_rfft): the N1-point column FFTs of every
+//      frame, times the twiddle, to scratch[f][k1][n2].
+//   2. fused_rows: block (c, group of R rows k1) walks the K frames of c
+//      in order.  A row k1 of the forward's second stage yields the bins
+//      k = k1 + N1*k2 for all N2 values k2, over the full 2p-point
+//      spectrum: exactly the bins that the inverse's first stage reads
+//      for its row ka = k1 (k = ka + N1*kb), the Hermitian half k > p
+//      included.  So the forward's second stage, the MAC and the
+//      inverse's first stage run on the same rows with no exchange
+//      between blocks, and X and Y never leave the block.  The price is
+//      that the MAC runs on all 2p bins, not p+1.  Each thread keeps the
+//      last P spectra of its kMidElems bins and their P partition values
+//      in registers (a ring shifted by one a frame, P a template
+//      parameter): no shared-memory traffic for the MAC, no barrier.
+//      A shared-memory ring with H beside it would take 128 B a bin at
+//      P = 8, 64 KB for a block's 512 bins; in registers the block fits
+//      twice on an SM (128 registers a thread at P = 8, no spills).
+//      The result, times the inverse twiddle, goes back in place of the
+//      rows it was read from, as scratch[f][ka][nb].
+//   3. inv_pass2<true>: the N1-point inverse FFTs, valid half only.
+//
+// Device-memory traffic a frame: 4p B of samples in, 2 x 32p B of
+// scratch round trips, 4p B out (72p B), against 104p B for the three
+// kernels (which also write and read X and Y).  The scratch round trips
+// remain; keeping them out needs a whole frame's FFT in one block.
+//
+// Bins 0 and p take real Y, as the plain inverse does; the MAC on the
+// Hermitian half uses H[N-k] conjugated.  The sum runs over j ascending,
+// as in _mac_kernel.
+
+constexpr int kMidTile = 512;                        // row values a block
+constexpr int kMidElems = 2;                         // of them a thread
+constexpr int kMidThreads = kMidTile / kMidElems;
+// Frames a step: the row FFTs of two frames run together (2R rows), so a
+// radix-4 stage has a butterfly for every thread and a frame costs half
+// the barriers; the MAC still takes the frames one after the other.
+constexpr int kLogMidFrames = 1;
+constexpr int kMidFrames = 1 << kLogMidFrames;
+
+template <int P>
+__global__ void FC_BOUNDS(kMidThreads, 2)
+fused_rows(float2* __restrict__ scratch, const float2* __restrict__ H,
+           int K, int p, int N1, int lN2, int lR) {
+  FC_DYNAMIC_SMEM(fc_smem);
+  const int lRs = lR + kLogMidFrames;                // rows of a step
+  const int N2 = 1 << lN2, R = 1 << lR, ld = row_stride(N2, lRs);
+  const int N = N1 * N2;
+  const int step = R * ld;                           // frame s at s * step
+  float2* a = fc_smem;
+  float2* b = a + kMidFrames * step;
+  float2* twf = b + kMidFrames * step;
+  float2* twi = twf + N2;
+  const int c = blockIdx.x;
+  const int k10 = blockIdx.y * R;
+  fill_twiddles(twf, lN2, -1.0f);
+  fill_twiddles(twi, lN2, 1.0f);
+
+  // this thread's values: row r = e / N2, column q = e % N2 of the block
+  int sm[kMidElems], gm[kMidElems];   // shared / global offsets
+  bool real_bin[kMidElems];
+  float2 h[kMidElems][P], ring[kMidElems][P], tw[kMidElems];
+#pragma unroll
+  for (int i = 0; i < kMidElems; ++i) {
+    const int e = threadIdx.x + i * kMidThreads;
+    const int r = e >> lN2;
+    const int q = e & (N2 - 1);
+    sm[i] = r * ld + q;
+    gm[i] = r * N2 + q;
+    const int kk = k10 + r + N1 * q;                   // the bin
+    real_bin[i] = (kk == 0 || kk == p);
+    const int src = (kk <= p) ? kk : N - kk;
+    const float conj = (kk <= p) ? 1.0f : -1.0f;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float2 v = H[(size_t)j * (p + 1) + src];
+      h[i][j] = make_float2(v.x, conj * v.y);
+      ring[i][j] = make_float2(0.0f, 0.0f);
+    }
+    tw[i] = twiddle((k10 + r) * q, N, 1.0f);
+  }
+
+  // frame f of this block's rows at rows + f * N; frames past K are
+  // transformed as whatever the buffer holds and then left out
+  float2* rows = scratch + (size_t)c * K * N + (size_t)k10 * N2;
+  float2 next[kMidFrames][kMidElems];
+#pragma unroll
+  for (int s = 0; s < kMidFrames; ++s) {
+#pragma unroll
+    for (int i = 0; i < kMidElems; ++i)
+      next[s][i] = (s < K) ? rows[(size_t)s * N + gm[i]]
+                           : make_float2(0.0f, 0.0f);
+  }
+  for (int f = 0; f < K; f += kMidFrames) {
+    __syncthreads();                 // the last step's reads of a, b done
+#pragma unroll
+    for (int s = 0; s < kMidFrames; ++s) {
+#pragma unroll
+      for (int i = 0; i < kMidElems; ++i) a[s * step + sm[i]] = next[s][i];
+      const int fn = f + kMidFrames + s;             // prefetch
+      if (fn < K) {
+#pragma unroll
+        for (int i = 0; i < kMidElems; ++i)
+          next[s][i] = rows[(size_t)fn * N + gm[i]];
+      }
+    }
+    float2* X = fft_rows(a, b, twf, lN2, lRs, ld);
+#pragma unroll
+    for (int s = 0; s < kMidFrames; ++s) {
+      if (f + s >= K) break;
+#pragma unroll
+      for (int i = 0; i < kMidElems; ++i) {
+#pragma unroll
+        for (int j = P - 1; j > 0; --j) ring[i][j] = ring[i][j - 1];
+        ring[i][0] = X[s * step + sm[i]];
+        float2 acc = make_float2(0.0f, 0.0f);
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          const float2 xv = ring[i][j];
+          const float2 hv = h[i][j];
+          acc.x += xv.x * hv.x - xv.y * hv.y;
+          acc.y += xv.x * hv.y + xv.y * hv.x;
+        }
+        if (real_bin[i]) acc.y = 0.0f;
+        X[s * step + sm[i]] = acc;   // only this thread reads this slot
+      }
+    }
+    const float2* Y = fft_rows(X, X == a ? b : a, twi, lN2, lRs, ld);
+#pragma unroll
+    for (int s = 0; s < kMidFrames; ++s) {
+      if (f + s >= K) break;
+      float2* out = rows + (size_t)(f + s) * N;
+#pragma unroll
+      for (int i = 0; i < kMidElems; ++i)
+        out[gm[i]] = cmul(Y[s * step + sm[i]], tw[i]);
+    }
+  }
+}
+
 int ilog2(int v) {
   int l = 0;
   while ((1 << l) < v) ++l;
@@ -332,20 +500,39 @@ int fft_rows_log2(int lM, int lrows) {
   return lR;
 }
 
-// Launches one transform pass: 2^lR rows of 2^lM points a block, two
-// row buffers and the twiddle table in dynamic shared memory (allowed
+// Launches `kernel` with `smem` bytes of dynamic shared memory (allowed
 // explicitly, since it may exceed the default 48 KB).
+template <class Kernel, class... Args>
+int launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
+                  cudaStream_t st, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  FC_LAUNCH(kernel, grid, dim3(threads), smem, st)(args...);
+  return (int)cudaGetLastError();
+}
+
+// Launches one transform pass: 2^lR rows of 2^lM points a block, two
+// row buffers and the twiddle table in dynamic shared memory.
 template <class Kernel, class... Args>
 int launch_fft(Kernel kernel, dim3 grid, int lR, int lM, cudaStream_t st,
                Args... args) {
   const size_t smem =
       (size_t)(2 * (1 << lR) * row_stride(1 << lM, lR) + (1 << lM)) *
       sizeof(float2);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  FC_LAUNCH(kernel, grid, dim3(kThreads), smem, st)(args...);
-  return (int)cudaGetLastError();
+  return launch_kernel(kernel, grid, kThreads, smem, st, args...);
+}
+
+template <int P>
+int launch_fused_rows(int C, int N1, int lN2, cudaStream_t st,
+                      float2* scratch, const float2* H, int K, int p) {
+  const int lR = ilog2(kMidTile) - lN2;
+  const int lRs = lR + kLogMidFrames;
+  const size_t smem =
+      (size_t)(2 * (1 << lRs) * row_stride(1 << lN2, lRs) + 2 * (1 << lN2)) *
+      sizeof(float2);
+  return launch_kernel(fused_rows<P>, dim3(C, N1 >> lR), kMidThreads, smem,
+                       st, scratch, H, K, p, N1, lN2, lR);
 }
 
 }  // namespace
@@ -394,8 +581,40 @@ int irfft_valid_f32(const void* Y, void* scratch, void* y, int C, int K,
                             lR1);
   if (rc != 0) return rc;
   const int lR2 = fft_rows_log2(lN1, lN2);
-  return launch_fft(inv_pass2, dim3(rows, N2 >> lR2), lR2, lN1, st,
+  return launch_fft(inv_pass2<false>, dim3(rows, N2 >> lR2), lR2, lN1, st,
                     (const float2*)scratch, (float*)y, p, lN1, N2, lR2);
+}
+
+// frames (C, K, p) f32, H (P, p+1) c64 -> y (C, K, p) f32, for
+// 1 <= P <= 8; scratch: C*K*2p complex64 values.
+int fused_conv_f32(const void* frames, const void* H, void* scratch,
+                   void* y, int C, int K, int p, int P, void* stream) {
+  if (!pow2_partition(p) || C < 1 || K < 1 || P < 1 || P > 8) return -1;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int lN = ilog2(2 * p);
+  const int lN1 = lN / 2, lN2 = lN - lN1;
+  const int N1 = 1 << lN1, N2 = 1 << lN2;
+  const int rows = C * K;
+  float2* s = (float2*)scratch;
+  const float2* h = (const float2*)H;
+  const int lR1 = fft_rows_log2(lN1, lN2);
+  int rc = launch_fft(fwd_pass1, dim3(rows, N2 >> lR1), lR1, lN1, st,
+                      (const float*)frames, s, K, p, lN1, N2, lR1);
+  if (rc != 0) return rc;
+  switch (P) {
+    case 1: rc = launch_fused_rows<1>(C, N1, lN2, st, s, h, K, p); break;
+    case 2: rc = launch_fused_rows<2>(C, N1, lN2, st, s, h, K, p); break;
+    case 3: rc = launch_fused_rows<3>(C, N1, lN2, st, s, h, K, p); break;
+    case 4: rc = launch_fused_rows<4>(C, N1, lN2, st, s, h, K, p); break;
+    case 5: rc = launch_fused_rows<5>(C, N1, lN2, st, s, h, K, p); break;
+    case 6: rc = launch_fused_rows<6>(C, N1, lN2, st, s, h, K, p); break;
+    case 7: rc = launch_fused_rows<7>(C, N1, lN2, st, s, h, K, p); break;
+    default: rc = launch_fused_rows<8>(C, N1, lN2, st, s, h, K, p); break;
+  }
+  if (rc != 0) return rc;
+  const int lR3 = fft_rows_log2(lN1, lN2);
+  return launch_fft(inv_pass2<true>, dim3(rows, N2 >> lR3), lR3, lN1, st,
+                    (const float2*)s, (float*)y, p, lN1, N2, lR3);
 }
 
 int causal_mac_c64(const void* X, const void* H, void* Y, int C, int K,

@@ -45,12 +45,14 @@ def headline_eq() -> EQParams:
 
 
 def headline_chain(device="cuda", dtype=torch.float32, ir_len: int = IR_LEN,
-                   seed: int = 0) -> FoldedChain:
-    """The prepared folded chain (rebuild-time work on the host)."""
+                   seed: int = 0, partition="auto") -> FoldedChain:
+    """The prepared folded chain (rebuild-time work on the host);
+    `partition` as `prepare_folded_convolver` takes it ("auto": one
+    uniform layer; "fused2": the two-level plan)."""
     cfg = ChainConfig(sample_rate=SAMPLE_RATE)
     state = prepare_folded_convolver(
         headline_ir(ir_len, seed), BLOCK_SIZE, FilterSpec(SAMPLE_RATE), cfg,
-        headline_eq(), dtype=dtype, device=device)
+        headline_eq(), dtype=dtype, partition=partition, device=device)
     return FoldedChain(cfg, state)
 
 
@@ -64,9 +66,9 @@ def headline_input(batch: int, seconds: float, device="cuda",
                        dtype=dtype) * 0.25
 
 
-def measure(chain: FoldedChain, x, reps: int = 3) -> list:
-    """Wall seconds of `reps` calls after one warm-up call, each fenced by
-    torch.cuda.synchronize()."""
+def measure(chain, x, reps: int = 3) -> list:
+    """Wall seconds of `reps` calls chain(x) after one warm-up call, each
+    fenced by torch.cuda.synchronize()."""
     chain(x)
     torch.cuda.synchronize()
     walls = []
@@ -76,6 +78,34 @@ def measure(chain: FoldedChain, x, reps: int = 3) -> list:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     return walls
+
+
+def profile_call(fn) -> tuple:
+    """Device time of one call fn() after a warm-up call
+    (torch.profiler): (wall ms, [(kernel name, device ms, launches)] by
+    device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return wall * 1e3, sorted(rows, key=lambda r: -r[1])
+
+
+def print_profile(name: str, wall: float, rows: list, card: str) -> None:
+    busy = sum(r[1] for r in rows)
+    print(f"{name} profiled call: wall {wall:.2f} ms, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall:.1f}%) [{card}]")
+    for kernel, ms, count in rows:
+        print(f"  {ms:9.3f} ms  x{count:<4d} {kernel[:110]}")
 
 
 def main():

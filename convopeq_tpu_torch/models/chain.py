@@ -1,19 +1,27 @@
-"""The folded chain (counterpart of the fused mode of
+"""The folded chains (counterpart of the fused mode of
 convopeq_tpu/models/chain.py).
 
 When every stage around the convolver is LTI (no soft clip, no AGC, no
 oversampling, wet-only mix, EQ bands all-stereo or bypassed), the input
 and output DC blockers, the EQ response, the output filter and the HC/LC
-curve fold into the IR itself at rebuild time (host NumPy f64), and the
-run-time chain is sanitize -> one uniform partitioned convolution per
-channel -> scalar gains.  See the JAX module's block comment for why the
-fold is exact (layer gains are baked into the IR before the fold).
+curve fold at rebuild time (host NumPy f64), either
 
-Ported here: `ChainConfig`, `resolve_oversampling_factor`,
-`fused_eligible`, `fused_prefilter_ir`, `throughput_partition_size`
-(the f32 cap), `prepare_folded_convolver` with a single-layer partition
-plan, `process_chain_fused` without a separate prefilter, and
-`FoldedChain`, the prepared chain as a module.
+- into the IR itself (`prepare_folded_convolver`): the run-time chain is
+  sanitize -> the NUC per channel -> scalar gains; or
+- into one separate prefilter (`prepare_fused_prefilter`), run as its own
+  uniform partitioned convolution ahead of the untouched 3-layer NUC
+  (`process_chain_fused(prefilter=)`, `PrefilterChain`).
+
+See the JAX module's block comment for why the fold is exact (layer gains
+are baked into the IR before the fold; the spectrum-filtered NUC does not
+commute, so the folded NUC is prepared unfiltered and the HC/LC curve
+goes into the prefilter).
+
+`prepare_folded_convolver` plans the folded IR as one uniform layer
+("auto" or an int partition), as the reference's 3-layer plan with unit
+gains (None), or as the two-level "fused2" plan: a near layer of 8
+partitions, which rides the fused P <= 8 kernel, and a far layer at 8x
+the partition (capped at the frame kernels' largest) for the rest.
 
 The semi-fold for soft-clip chains (`prepare_semi_folded_convolver`,
 `process_chain_semi_fused`, `SemiFoldedChain`; JAX :538-595): the LTI
@@ -21,8 +29,7 @@ prefix (input DC blocker, EQ, convolver, output filter, HC/LC curve)
 folds into the IR; the nonlinear suffix (makeup -> local 2x soft clip ->
 output DC blocker -> headroom) runs staged in the reference order.
 
-The staged chain, the 3-layer and "fused2" plans and the separate
-prefilter are not ported yet.
+The staged chain is not ported yet.
 """
 from __future__ import annotations
 
@@ -33,10 +40,13 @@ import torch
 from torch import nn
 
 from ..ops.dc_blocker import dc_block, dc_blocker_alphas
+from ..ops.frame_conv_kernels import MAX_PART
+from ..ops.fused_conv_kernels import MAX_FUSED_PARTS, fused_conv_supported
+from ..ops.partitioned_conv import partition_spectra, uniform_partitioned_conv
 from ..ops.softclip import soft_clip_local2x, soft_clip_params
 from ..utils.dsputil import K_OUTPUT_HEADROOM, next_pow2
 from .convolver import (StereoConvolver, StereoConvolverState,
-                        convolver_process)
+                        convolver_process, stereo_prepare)
 from .eq import EQParams
 from .gain_planner import CONVOLVER_THEN_EQ, EQ_THEN_CONVOLVER
 from .output_filter import HC_NATURAL, LC_NATURAL
@@ -187,14 +197,44 @@ def _sanitize_and_trim(x, cfg: ChainConfig):
     return x * pre if pre != 1.0 else x
 
 
+def prepare_fused_prefilter(cfg: ChainConfig, eq_params: EQParams | None,
+                            eps: float = 1e-10, dtype=torch.float32,
+                            part_size: int = 8192, spec=None,
+                            ir_len: int = 10 ** 6, block_size: int = 512,
+                            device="cuda"):
+    """Partition spectra of the folded prefilter: (Hg, part_size), Hg
+    (P, part_size+1) complex in `dtype`'s precision on `device`.
+
+    Pass the FilterSpec as `spec` to fold the HC/LC curve in (and prepare
+    the NUC with apply_spectrum_filter=False).  AIR tail mode (per-layer
+    damping) does not fold: the caller's layer plan, probed at `ir_len`
+    and `block_size`, must carry no damping."""
+    if spec is not None:
+        from .nuc import plan_layers
+        probe = plan_layers(ir_len, block_size, spec)
+        if any(lp.damping is not None for lp in probe.layers):
+            raise ValueError("AIR tail mode (per-layer damping) cannot be "
+                             "folded into a global prefilter")
+    g = fused_prefilter_ir(cfg, eq_params, eps, spec=spec)
+    Hg = partition_spectra(torch.as_tensor(g).to(dtype), part_size,
+                           dtype=dtype, device=device)
+    return Hg, part_size
+
+
 def process_chain_fused(x, cfg: ChainConfig, conv_state: StereoConvolverState,
-                        frame_mac="auto"):
-    """The collapsed run-time chain: sanitize -> scalar gains -> NUC ->
-    scalar gains, on x (..., 2, N) with time last, for a state from
-    `prepare_folded_convolver`.  `frame_mac` passes through to
+                        prefilter=None, frame_mac="auto"):
+    """The collapsed run-time chain: sanitize -> scalar gains ->
+    [prefilter conv] -> NUC -> scalar gains, on x (..., 2, N) with time
+    last.  With a `prefilter` (Hg, part_size) from
+    `prepare_fused_prefilter`, the NUC is the normal `stereo_prepare`
+    state; without one, a state from `prepare_folded_convolver`, which
+    bakes the prefilter into the IR.  `frame_mac` passes through to
     `uniform_partitioned_conv` ("plain" = the plain frame steps on any
     device)."""
     x = _sanitize_and_trim(x, cfg)
+    if prefilter is not None:
+        Hg, pg = prefilter
+        x = uniform_partitioned_conv(x, Hg, pg, frame_mac)
     y = convolver_process(x, conv_state, 1.0, frame_mac)
     post = cfg.output_makeup_gain * (K_OUTPUT_HEADROOM
                                      if cfg.apply_output_headroom else 1.0)
@@ -218,23 +258,27 @@ def prepare_folded_convolver(ir, block_size: int, spec, cfg: ChainConfig,
                              dtype=torch.float32, partition="auto",
                              dc_passes: int = 2,
                              fold_spectrum_curve: bool = True,
+                             p_near: int = 16384,
                              device="cuda") -> StereoConvolverState:
     """Fold the LTI prefilter (dc blockers, EQ, output filter, HC/LC
-    curve) into the IR on the host in f64, then prepare a single-layer
-    uniform NUC of the combined response, with spectra in `dtype` on
-    `device`.
+    curve) into the IR on the host in f64, then prepare a NUC of the
+    combined response, with spectra in `dtype` on `device`.
 
     The layer gains of the ORIGINAL IR's plan are baked into the IR first
     (h_eff[n] = h[n] * gain(layer of n)), then h_eff is convolved with the
     prefilter g:  NUC(h) = h_eff * x  =>  g * NUC(h) = (g * h_eff) * x.
 
     partition: "auto" (`throughput_partition_size`) or an int partition
-    size.  AIR tail mode (per-layer damping) cannot fold and raises."""
+    size for one uniform layer; None for the reference's 3-layer plan
+    with unit gains; "fused2" for the two-level plan with a near layer of
+    8 partitions at `p_near` (`_prepare_fused2`).  Every choice computes
+    the same linear convolution.  AIR tail mode (per-layer damping)
+    cannot fold and raises."""
     from .nuc import nuc_prepare_uniform, plan_layers
-    if partition != "auto" and not isinstance(partition, int):
-        raise ValueError(f"partition {partition!r}: this port takes 'auto' "
-                         "or an int (the 3-layer and fused2 plans are not "
-                         "ported yet)")
+    if not (partition in ("auto", "fused2", None)
+            or isinstance(partition, int)):
+        raise ValueError(f"partition {partition!r}: 'auto', 'fused2', "
+                         "None or an int")
     ir = np.asarray(ir, np.float64)
     if ir.ndim == 1:
         ir = np.stack([ir, ir])
@@ -252,12 +296,60 @@ def prepare_folded_convolver(ir, block_size: int, spec, cfg: ChainConfig,
     m = next_pow2(ir.shape[-1] + g.shape[0] - 1)
     combined = np.fft.irfft(np.fft.rfft(h_eff, m) * np.fft.rfft(g, m),
                             m)[:, :ir.shape[-1] + g.shape[0] - 1]
+    cj = torch.as_tensor(combined).to(dtype)
+    if partition == "fused2":
+        return _prepare_fused2(cj, block_size, p_near, device)
+    if partition is None:
+        return stereo_prepare(cj, block_size, spec,
+                              apply_spectrum_filter=False,
+                              unit_layer_gains=True, device=device)
     if partition == "auto":
         partition = throughput_partition_size(combined.shape[-1])
-    cj = torch.as_tensor(combined).to(dtype)
     return StereoConvolverState(
         left=nuc_prepare_uniform(cj[0], int(partition), block_size, device),
         right=nuc_prepare_uniform(cj[1], int(partition), block_size, device))
+
+
+def _prepare_fused2(combined, block_size: int, p_near: int = 16384,
+                    device="cuda") -> StereoConvolverState:
+    """Two-level throughput plan (JAX :481-535): a near layer of 8
+    partitions at `p_near`, which runs on the fused kernel, plus a far
+    layer for the rest at 8 x p_near, capped at the frame kernels'
+    MAX_PART (65536: for the 1M-tap headline the same 65536 x 15 far
+    layer that the JAX package picks on the CPU).  One uniform layer at
+    p_near when the IR fits 8 near partitions, and the single-layer auto
+    plan when the fused kernel does not take p_near.  combined: (2, n)
+    CPU tensor in the spectra's dtype."""
+    from .nuc import NUCLayerPlan, NUCPlan, NUCState, nuc_prepare_uniform
+    n = int(combined.shape[-1])
+    near_parts = MAX_FUSED_PARTS
+    near_len = near_parts * p_near
+    if not fused_conv_supported(p_near, near_parts) or n <= near_len:
+        part = (p_near if fused_conv_supported(p_near, near_parts)
+                else throughput_partition_size(n))
+        return StereoConvolverState(
+            left=nuc_prepare_uniform(combined[0], part, block_size, device),
+            right=nuc_prepare_uniform(combined[1], part, block_size, device))
+    p_far = min(near_parts * p_near, MAX_PART)
+    far_len = n - near_len
+    far_parts = -(-far_len // p_far)
+    layers = (
+        NUCLayerPlan(offset=0, length=near_len, part_size=p_near,
+                     num_parts=near_parts, gain=1.0, damping=None),
+        NUCLayerPlan(offset=near_len, length=far_len, part_size=p_far,
+                     num_parts=far_parts, gain=1.0, damping=None))
+    plan = NUCPlan(layers=layers, direct_taps=0, latency=p_near,
+                   block_size=block_size, ir_len=n)
+
+    def prep(ch):
+        H0 = partition_spectra(ch[:near_len], p_near, near_parts,
+                               dtype=ch.dtype, device=device)
+        H1 = partition_spectra(ch[near_len:], p_far, far_parts,
+                               dtype=ch.dtype, device=device)
+        return NUCState(plan=plan, layer_spectra=[H0, H1])
+
+    return StereoConvolverState(left=prep(combined[0]),
+                                right=prep(combined[1]))
 
 
 class FoldedChain(nn.Module):
@@ -272,7 +364,27 @@ class FoldedChain(nn.Module):
 
     def forward(self, x, frame_mac="auto"):
         return process_chain_fused(x, self.cfg, self.convolver.state,
-                                   frame_mac)
+                                   frame_mac=frame_mac)
+
+
+class PrefilterChain(nn.Module):
+    """The fused chain with a separate prefilter: static config, the
+    folded prefilter's partition spectra (a buffer) and the stereo
+    convolver (the 3-layer NUC of `stereo_prepare`).  forward(x) runs
+    `process_chain_fused(prefilter=)` on x (..., 2, N)."""
+
+    def __init__(self, cfg: ChainConfig, prefilter,
+                 conv_state: StereoConvolverState):
+        super().__init__()
+        self.cfg = cfg
+        Hg, self.prefilter_part = prefilter
+        self.register_buffer("prefilter_spectra", Hg)
+        self.convolver = StereoConvolver(conv_state)
+
+    def forward(self, x, frame_mac="auto"):
+        return process_chain_fused(
+            x, self.cfg, self.convolver.state,
+            (self.prefilter_spectra, self.prefilter_part), frame_mac)
 
 
 def prepare_semi_folded_convolver(ir, block_size: int, spec, cfg: ChainConfig,

@@ -52,6 +52,7 @@ LIBRARIES = {
             "frames_rfft_f32": [_P, _P, _P, _I, _I, _I, _P],
             "irfft_valid_f32": [_P, _P, _P, _I, _I, _I, _P],
             "causal_mac_c64": [_P, _P, _P, _I, _I, _I, _I, _P],
+            "fused_conv_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
             "frame_conv_mac_tile": [_I],
         }),
     "error_feedback_quantize": Library(

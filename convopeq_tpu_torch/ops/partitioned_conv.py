@@ -9,7 +9,10 @@ the MAC over the frame axis, one inverse transform of every frame.
 
 The three steps are the frame kernels of `frame_conv_kernels`: on a CUDA
 f32 tensor the hand-written kernels, on a CPU tensor their plain
-versions.
+versions.  A layer of P <= 8 partitions goes to the fused kernel of
+`fused_conv_kernels` instead, chosen from the shape before the launch
+(the JAX package's `fused_conv_supported` gate,
+convopeq_tpu/ops/partitioned_conv.py:392-401).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from ..device import resolve_device
 from .frame_conv_kernels import (causal_mac, causal_mac_plain, frames_rfft,
                                  frames_rfft_plain, irfft_valid,
                                  irfft_valid_plain)
+from .fused_conv_kernels import fused_conv, fused_conv_supported
 
 _FRAME_STEPS = {
     "auto": (frames_rfft, causal_mac, irfft_valid),
@@ -54,10 +58,11 @@ def uniform_partitioned_conv(x, Hparts, part_size: int, frame_mac="auto"):
     x: (..., N) real signal, time last.
     Hparts: (P, part_size+1) complex partition spectra from
       `partition_spectra`, on x's device.
-    frame_mac: "auto" runs the frame kernels' wrappers (the CUDA kernels
-      for a CUDA tensor, the plain versions for a CPU tensor); "plain"
-      runs the plain versions on any device (the f64 reference on the
-      card).
+    frame_mac: "auto" runs the kernels' wrappers (the CUDA kernels for a
+      CUDA tensor, the plain versions for a CPU tensor): the fused
+      kernel for P <= 8 partitions, else the three frame kernels;
+      "plain" runs the plain frame steps on any device (the f64
+      reference on the card).
 
     Returns y: (..., N) — frames k cover [k*p,(k+1)*p); equals linear
     convolution x*h truncated to N when Hparts are unfiltered.
@@ -73,6 +78,9 @@ def uniform_partitioned_conv(x, Hparts, part_size: int, frame_mac="auto"):
     pad = k * p - n
     xp = F.pad(x, (0, pad)) if pad else x
     frames = xp.reshape((-1, k, p)).contiguous()
-    y = inv(mac(fwd(frames), Hparts))
+    if frame_mac == "auto" and fused_conv_supported(p, Hparts.shape[0]):
+        y = fused_conv(frames, Hparts)
+    else:
+        y = inv(mac(fwd(frames), Hparts))
     y = y.reshape(x.shape[:-1] + (k * p,))
     return y[..., :n]

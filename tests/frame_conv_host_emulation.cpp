@@ -1,15 +1,21 @@
 // Host emulation of convopeq_tpu_torch/csrc/frame_conv.cu, for checking
-// the kernels' index and transform arithmetic on a machine without a GPU.
+// the kernels on a machine without a GPU.
 //
-// Each block runs as one thread (blockDim.x == 1): the kernels stride
-// their loops by blockDim.x, so one thread does the whole block's work,
-// and __syncthreads() is a no-op.  It checks what each block computes,
-// not races between threads, and it does not check that nvcc accepts
-// the source.  Build:
+// Each block runs with its blockDim.x threads (fused_rows keeps values in
+// per-thread registers and needs its real block size): each thread is a
+// coroutine (ucontext) with its own stack, the dynamic shared memory is
+// one buffer of the block, and __syncthreads() yields to a scheduler that
+// resumes the threads in turn, so every thread reaches a barrier before
+// any passes it.  It checks what the threads compute and where they meet,
+// not races within a barrier interval, and it does not check that nvcc
+// accepts the source.  Build:
 //   g++ -O2 -std=c++17 -shared -fPIC -o libframe_conv_emu.so \
 //       tests/frame_conv_host_emulation.cpp
+#include <ucontext.h>
+
 #include <cmath>
 #include <cstddef>
+#include <functional>
 #include <vector>
 
 #define FRAME_CONV_HOST_EMULATION 1
@@ -27,12 +33,54 @@ struct dim3 {
 static dim3 threadIdx(0, 0, 0), blockIdx(0, 0, 0), blockDim(1, 1, 1);
 static float2* emu_smem = nullptr;
 
+namespace emu {
+constexpr size_t kStack = 256 * 1024;
+static ucontext_t scheduler;
+static std::vector<ucontext_t> threads;
+static std::vector<char> stacks;
+static std::vector<bool> done;
+static unsigned current = 0;
+static const std::function<void()>* body = nullptr;
+
+static void yield() { swapcontext(&threads[current], &scheduler); }
+
+static void trampoline() {
+  (*body)();
+  done[current] = true;
+}  // returns to uc_link, the scheduler
+
+// Runs `fn` as `nthreads` threads of one block, to the end.
+static void run_block(unsigned nthreads, const std::function<void()>& fn) {
+  threads.resize(nthreads);
+  stacks.resize(nthreads * kStack);
+  done.assign(nthreads, false);
+  body = &fn;
+  for (unsigned t = 0; t < nthreads; ++t) {
+    getcontext(&threads[t]);
+    threads[t].uc_stack.ss_sp = stacks.data() + t * kStack;
+    threads[t].uc_stack.ss_size = kStack;
+    threads[t].uc_link = &scheduler;
+    makecontext(&threads[t], trampoline, 0);
+  }
+  unsigned live = nthreads;
+  while (live > 0) {
+    for (unsigned t = 0; t < nthreads; ++t) {
+      if (done[t]) continue;
+      current = t;
+      threadIdx = dim3(t, 0, 0);
+      swapcontext(&scheduler, &threads[t]);
+      if (done[t]) --live;
+    }
+  }
+}
+}  // namespace emu
+
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
-static inline void __syncthreads() {}
+static inline void __syncthreads() { emu::yield(); }
 
 static inline void sincospif(float x, float* s, float* c) {
   const double a = (double)x * M_PI;
@@ -50,21 +98,21 @@ static cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 namespace emu {
 struct Launch {
-  dim3 grid;
+  dim3 grid, block;
   size_t smem;
   template <class Kernel>
   auto operator()(Kernel kernel) const {
-    const dim3 g = grid;
+    const dim3 g = grid, b = block;
     const size_t bytes = smem;
-    return [g, bytes, kernel](auto... args) {
+    return [g, b, bytes, kernel](auto... args) {
       std::vector<float2> buf(bytes / sizeof(float2) + 1);
       emu_smem = buf.data();
-      blockDim = dim3(1, 1, 1);
-      threadIdx = dim3(0, 0, 0);
+      blockDim = b;
+      const std::function<void()> fn = [&]() { kernel(args...); };
       for (unsigned by = 0; by < g.y; ++by)
         for (unsigned bx = 0; bx < g.x; ++bx) {
           blockIdx = dim3(bx, by, 0);
-          kernel(args...);
+          run_block(b.x, fn);
         }
       emu_smem = nullptr;
     };
@@ -73,7 +121,7 @@ struct Launch {
 }  // namespace emu
 
 #define FC_LAUNCH(kernel, grid, block, smem, stream) \
-  emu::Launch{(grid), (smem)}(kernel)
+  emu::Launch{(grid), (block), (smem)}(kernel)
 #define FC_DYNAMIC_SMEM(name) float2* name = emu_smem
 
 #include "../convopeq_tpu_torch/csrc/frame_conv.cu"

@@ -93,12 +93,22 @@ def test_folded_chain_f32_tracks_f64(jax_slice):
 
 
 def test_folded_chain_rejects_unported_plans():
+    """The 3-layer (None) and "fused2" plans run and give the auto plan's
+    convolution; an unknown plan and AIR tail mode still raise."""
     cfg = t_chain.ChainConfig()
+    ir = headline.headline_ir(3000, seed=5)
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(1, 2, 4000)))
+    prep = lambda partition, **kw: t_chain.prepare_folded_convolver(
+        ir, 512, t_nuc.FilterSpec(), cfg, None, dtype=torch.float64,
+        partition=partition, device="cpu", **kw)
+    y_auto = t_chain.process_chain_fused(x, cfg, prep("auto")).numpy()
     for partition in (None, "fused2"):
-        with pytest.raises(ValueError):
-            t_chain.prepare_folded_convolver(
-                np.ones(100), 512, t_nuc.FilterSpec(), cfg, None,
-                partition=partition, device="cpu")
+        state = prep(partition, p_near=512)
+        assert state.left.plan.num_layers >= 2
+        y = t_chain.process_chain_fused(x, cfg, state).numpy()
+        assert _rel_rms(y, y_auto) <= 1e-12
+    with pytest.raises(ValueError):
+        prep("three-layer")
     with pytest.raises(ValueError):             # AIR tail mode
         t_chain.prepare_folded_convolver(
             np.ones(20_000), 512, t_nuc.FilterSpec(tail_mode=0), cfg, None,
@@ -108,6 +118,9 @@ def test_folded_chain_rejects_unported_plans():
 def test_import_leaves_jax_out():
     code = ("import sys, convopeq_tpu_torch.headline, convopeq_tpu_torch.convert;"
             "import convopeq_tpu_torch.ops.frame_conv_kernels;"
+            "import convopeq_tpu_torch.ops.fused_conv_kernels;"
+            "import convopeq_tpu_torch.nuc3, convopeq_tpu_torch.models.nuc;"
+            "import convopeq_tpu_torch.models.convolver;"
             "print('jax' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,

@@ -5,8 +5,8 @@
   MAC, as tests/test_pallas.py), and in f64 against jnp.fft at 1e-12.
 - uniform_partitioned_conv, torch f64 against JAX f64.
 - The CUDA source itself, compiled for the host by
-  tests/frame_conv_host_emulation.cpp (each block run as one thread),
-  against the plain versions.
+  tests/frame_conv_host_emulation.cpp (every thread of a block a
+  coroutine), against the plain versions.
 """
 import ctypes
 import shutil
