@@ -11,6 +11,14 @@
    P = 33, f32); max |diff| <= 2e-5 x max |plain| (x max(1, .) for the
    inverse), and the kernel's, the plain version's and the library call's
    times (CUDA events, median of 7 after warm-up).
+3b. The three f64 frame kernels against their plain f64 versions at the
+   same shapes: max |diff| <= 1e-12 x max |plain|; times as in 3 (library:
+   cuFFT D2Z of the built frames, Z2D of the full frame) and the bound at
+   the card's f64 rate.
+3c. The self-check path (bench.py's, which reaches the TPU's
+   `_fwd_kernel`): `osa_rfft` of materialized (C, K, 2p) overlap-save
+   frames, then `irfft_valid`; `osa_rfft` against torch.fft.rfft and
+   against `frames_rfft` of the same frames, 2e-5 x max.
 4. The folded headline chain at the 1M-tap IR: (a) 4 streams x 10 s in
    f32 through the kernels against the plain path in f64 on the card,
    relative RMS <= 2e-5, finite, every frame kernel launched; (b) 64
@@ -54,10 +62,21 @@
    512 x 12 and 4096 x 5, spectrum filter on, mix 0.7 ramped from 1.0
    over 0.1 s): (a) 4 x 10 s fidelity as in 8a, the fused kernel
    launched; (b) the realtime factor at 256 x 10 s.
-11. A JSON line of the kernels (launches from the prefilter chain's run
-   of phase 8a, the quantizer's from config6's of phase 6a, and every
-   path's counts beside them), the card's name and power limit, then the
-   result line.
+11. The f64 tier, one phase per line of `parity.LINE_NAMES` (the f64
+   folded headline, the f64 prefilter chain, config5, config5d32,
+   config5d24, config6 in f64): (a) fidelity of the f64 kernel path
+   against the f64 plain path on the card (relative RMS <= 1e-12; the
+   dithered config5d32 output <= 1e-9, config5d24's reported; config6
+   before the quantizer), dithered outputs on their grid and within the
+   fir ladder's bound, every f64 frame kernel launched and no f32 frame
+   kernel nor the fused kernel; (b) realtime factor, spread and peak
+   memory at the line's batch.
+12. A JSON line of the kernels (launches: the f32 frame kernels' and the
+   fused kernel's from the prefilter chain's run of phase 8a, the
+   quantizer's from config6's of phase 6a, the f64 kernels' from the f64
+   headline's of phase 11a, osa_rfft's from the self-check path of 3c;
+   every path's counts beside them), the card's name and power limit,
+   then the result line.
 Any failure raises, and the script exits non-zero.
 """
 import json
@@ -71,7 +90,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from convopeq_tpu_torch import config6, headline, nuc3
+from convopeq_tpu_torch import config6, headline, nuc3, parity
 from convopeq_tpu_torch.device import card_description
 from convopeq_tpu_torch.models import dither
 from convopeq_tpu_torch.ops import _build
@@ -83,26 +102,33 @@ from convopeq_tpu_torch.ops.partitioned_conv import uniform_partitioned_conv
 C, K, P_SIZE, NPARTS = 8, 88, 32768, 33
 QR, QN = 512, 2048                  # quantizer check shape (the plain loop)
 VECTORS = Path(__file__).resolve().parent / "tests" / "ref_harness" / "vectors"
-SOURCES = {"frames_rfft": "convopeq_tpu_torch/csrc/frame_conv.cu",
-           "causal_mac": "convopeq_tpu_torch/csrc/frame_conv.cu",
-           "irfft_valid": "convopeq_tpu_torch/csrc/frame_conv.cu",
+FRAME_CU = "convopeq_tpu_torch/csrc/frame_conv.cu"
+SOURCES = {"frames_rfft": FRAME_CU, "causal_mac": FRAME_CU,
+           "irfft_valid": FRAME_CU,
            "error_feedback_quantize":
                "convopeq_tpu_torch/csrc/error_feedback_quantize.cu",
-           "fused_conv": "convopeq_tpu_torch/csrc/frame_conv.cu"}
+           "fused_conv": FRAME_CU, "frames_rfft_f64": FRAME_CU,
+           "causal_mac_c128": FRAME_CU, "irfft_valid_f64": FRAME_CU,
+           "osa_rfft": FRAME_CU}
 REPLACES = {
     "frames_rfft": "convopeq_tpu/ops/pallas_gemm_fft.py:335",
     "causal_mac": "convopeq_tpu/ops/pallas_gemm_fft.py:543",
     "irfft_valid": "convopeq_tpu/ops/pallas_gemm_fft.py:158",
     "error_feedback_quantize": "convopeq_tpu/ops/pallas_kernels.py:116",
     "fused_conv": "convopeq_tpu/ops/pallas_gemm_fft.py:677",
+    "frames_rfft_f64": "convopeq_tpu/ops/pallas_dd_fft.py:356",
+    "causal_mac_c128": "convopeq_tpu/ops/pallas_dd_fft.py:586",
+    "irfft_valid_f64": "convopeq_tpu/ops/pallas_dd_fft.py:465",
+    "osa_rfft": "convopeq_tpu/ops/pallas_gemm_fft.py:133",
 }
 # fused kernel check shapes (C, K, p, P): the prefilter at 60 s, the
 # fused2 near layer at 60 s, the room IR's L1 at 10 s
 FUSED_SHAPES = [(8, 352, 8192, 8), (8, 176, 16384, 8), (8, 118, 4096, 5)]
-# one H100 SXM (NVIDIA's data sheet): device memory rate, f32 rate outside
-# the tensor cores
+# one H100 SXM (NVIDIA's data sheet): device memory rate, f32 and f64
+# rates outside the tensor cores
 MEM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+F64_OPS_S = 34e12
 
 
 def check(cond, what):
@@ -136,9 +162,10 @@ def time_ms(fn, reps=7):
     return statistics.median(times)
 
 
-def bound(nbytes, ops):
-    """(least ms, what binds it) for `nbytes` moved and `ops` f32 ops."""
-    t_bytes, t_ops = nbytes / MEM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+def bound(nbytes, ops, ops_s=F32_OPS_S):
+    """(least ms, what binds it) for `nbytes` moved and `ops` operations
+    at `ops_s` a second (f32 by default)."""
+    t_bytes, t_ops = nbytes / MEM_BYTES_S * 1e3, ops / ops_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -171,14 +198,18 @@ def phase_build(card):
                 print("  ptxas:", line.strip())
 
 
-def phase_kernels(card):
+def phase_kernels(card, dtype=torch.float32):
+    """The three frame kernels of `dtype` (f32: rows 1-3, f64: rows 6-8)
+    against their plain versions at C, K, P_SIZE, NPARTS."""
     dev = torch.device("cuda")
+    f64 = dtype == torch.float64
     gen = torch.Generator(device=dev).manual_seed(7)
-    frames = torch.randn((C, K, P_SIZE), generator=gen, device=dev)
+    frames = torch.randn((C, K, P_SIZE), generator=gen, device=dev,
+                         dtype=dtype)
     H = torch.complex(torch.randn((NPARTS, P_SIZE + 1), generator=gen,
-                                  device=dev),
+                                  device=dev, dtype=dtype),
                       torch.randn((NPARTS, P_SIZE + 1), generator=gen,
-                                  device=dev))
+                                  device=dev, dtype=dtype))
     X_plain = fk.frames_rfft_plain(frames)
     Y_plain = fk.causal_mac_plain(X_plain, H)
     y_plain = fk.irfft_valid_plain(Y_plain)
@@ -188,19 +219,22 @@ def phase_kernels(card):
     n_fft = 2 * P_SIZE
     fft_ops = C * K * 2.5 * n_fft * math.log2(n_fft)
     mac_ops = 8 * B * C * sum(min(k + 1, NPARTS) for k in range(K))
-    spec_bytes, sig_bytes = C * K * B * 8, C * K * P_SIZE * 4
+    item = frames.element_size()
+    spec_bytes, sig_bytes = C * K * B * 2 * item, C * K * P_SIZE * item
+    rate = F64_OPS_S if f64 else F32_OPS_S
+    names = fk.F64_KERNELS if f64 else fk.F32_KERNELS
     cases = [
-        ("frames_rfft", lambda: fk.frames_rfft(frames),
+        (names[0], lambda: fk.frames_rfft(frames),
          lambda: fk.frames_rfft_plain(frames), X_plain,
          lambda: torch.fft.rfft(osa, dim=-1),
-         bound(sig_bytes + spec_bytes, fft_ops)),
-        ("causal_mac", lambda: fk.causal_mac(X_plain, H),
+         bound(sig_bytes + spec_bytes, fft_ops, rate)),
+        (names[1], lambda: fk.causal_mac(X_plain, H),
          lambda: fk.causal_mac_plain(X_plain, H), Y_plain, None,
-         bound(2 * spec_bytes + NPARTS * B * 8, mac_ops)),
-        ("irfft_valid", lambda: fk.irfft_valid(Y_plain),
+         bound(2 * spec_bytes + NPARTS * B * 2 * item, mac_ops, rate)),
+        (names[2], lambda: fk.irfft_valid(Y_plain),
          lambda: fk.irfft_valid_plain(Y_plain), y_plain,
          lambda: torch.fft.irfft(Y_plain, n=n_fft, dim=-1),
-         bound(spec_bytes + sig_bytes, fft_ops)),
+         bound(spec_bytes + sig_bytes, fft_ops, rate)),
     ]
     rows = {}
     for name, kern, plain, ref, library, (bound_ms, bound_by) in cases:
@@ -210,20 +244,61 @@ def phase_kernels(card):
         scale = float(ref.abs().max())
         if name == "irfft_valid":
             scale = max(1.0, scale)
-        tol = 2e-5 * scale
+        tol = (1e-12 if f64 else 2e-5) * scale
         ms = time_ms(kern)
         plain_ms = time_ms(plain)
         library_ms = time_ms(library) if library else None
         print(f"{name}: max|diff| {err:.3e} (tol {tol:.3e}, rel "
               f"{err / scale:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} "
               f"ms  library {library_ms} ms  bound {bound_ms:.4f} ms "
-              f"({bound_by})  (C={C} K={K} p={P_SIZE} P={NPARTS}) [{card}]")
+              f"({bound_by})  (C={C} K={K} p={P_SIZE} P={NPARTS}, "
+              f"{str(dtype)[6:]}) [{card}]")
         check(err <= tol and torch.isfinite(out).all(),
               f"{name} disagrees with its plain version")
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": library_ms}
     return rows
+
+
+def phase_self_check(card):
+    """bench.py's self-check path on the port: osa_rfft of materialized
+    overlap-save frames, then irfft_valid, counted; then osa_rfft against
+    torch.fft.rfft and against frames_rfft of the same frames."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    frames = torch.randn((C, K, P_SIZE), generator=gen, device=dev)
+    osa = torch.cat([torch.cat([torch.zeros_like(frames[:, :1]),
+                                frames[:, :-1]], dim=1), frames], dim=-1)
+    reset_launches()
+    X = fk.osa_rfft(osa)
+    total = float(fk.irfft_valid(X).sum())
+    torch.cuda.synchronize()
+    launches = launches_now()
+    ref = fk.osa_rfft_plain(osa)
+    scale = float(ref.abs().max())
+    err = float((X - ref).abs().max())
+    err_frames = float((X - fk.frames_rfft(frames)).abs().max())
+    ms = time_ms(lambda: fk.osa_rfft(osa))
+    plain_ms = time_ms(lambda: fk.osa_rfft_plain(osa))
+    library_ms = time_ms(lambda: torch.fft.rfft(osa, dim=-1))
+    n_fft = 2 * P_SIZE
+    bound_ms, bound_by = bound(C * K * n_fft * 4 + C * K * (P_SIZE + 1) * 8,
+                               C * K * 2.5 * n_fft * math.log2(n_fft))
+    print(f"self-check path (osa_rfft -> irfft_valid), sum {total:.6e}: "
+          f"osa_rfft max|diff| {err:.3e} vs torch.fft.rfft, {err_frames:.3e} "
+          f"vs frames_rfft (tol {2e-5 * scale:.3e})  kernel {ms:.3f} ms  "
+          f"plain {plain_ms:.3f} ms  library {library_ms:.3f} ms  bound "
+          f"{bound_ms:.4f} ms ({bound_by}), launches {launches} (C={C} "
+          f"K={K} p={P_SIZE}) [{card}]")
+    check(err <= 2e-5 * scale and err_frames <= 2e-5 * scale
+          and bool(torch.isfinite(X).all()) and math.isfinite(total),
+          "osa_rfft agrees with torch.fft.rfft and frames_rfft")
+    check(launches["osa_rfft"] == 1 and launches["irfft_valid"] == 1,
+          "the self-check path launched osa_rfft and irfft_valid")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}, launches
 
 
 def phase_headline(card):
@@ -251,7 +326,7 @@ def phase_headline(card):
           f"launches {launches} [{card}]")
     check(y32.shape == x.shape and finite, "headline output finite, shaped")
     check(rel <= 2e-5, "headline matches the f64 plain path")
-    check(all(launches[n] > 0 for n in fk.launch_counts),
+    check(all(launches[n] > 0 for n in fk.F32_KERNELS),
           "every frame kernel launched on the headline path")
     del x, y32, y64, chain64
 
@@ -265,10 +340,10 @@ def phase_headline(card):
     return report_rtf("headline", batch, seconds, walls, peak, card)
 
 
-def report_rtf(name, batch, seconds, walls, peak, card):
+def report_rtf(name, batch, seconds, walls, peak, card, kind="f32"):
     """Prints the realtime factor of `walls` and returns it."""
     med = statistics.median(walls)
-    print(f"{name} {batch}x{seconds:g}s f32: realtime factor "
+    print(f"{name} {batch}x{seconds:g}s {kind}: realtime factor "
           f"{batch * seconds / med:.1f} (median wall {med * 1e3:.2f} ms; "
           f"walls {[round(w * 1e3, 2) for w in walls]} ms; RTF spread "
           f"{batch * seconds / max(walls):.1f}.."
@@ -476,7 +551,7 @@ def phase_config6(card):
           "config6 output finite, shaped")
     check(bool((grid == torch.round(grid)).all()), "output on the 24-bit grid")
     check(max_lsb <= lim, "output within the fir ladder's bound")
-    check(all(launches[n] > 0 for n in [*fk.launch_counts, *qk.launch_counts]),
+    check(all(launches[n] > 0 for n in [*fk.F32_KERNELS, *qk.launch_counts]),
           "every kernel of the config6 path launched")
     del x, y32, y64, q, chain64, grid, dev_lsb
 
@@ -686,10 +761,73 @@ def phase_roomcorr(card):
     return launches
 
 
+def phase_parity(card):
+    """Phase 11: each f64 line of `parity.LINE_NAMES`; returns its counts
+    by line."""
+    by_path = {}
+    for name in parity.LINE_NAMES:
+        t0 = time.perf_counter()
+        line = parity.make_line(name)
+        prep = time.perf_counter() - t0
+        x, u = parity.fidelity_signal(line)
+        reset_launches()
+        y, q = line.run(x, u)
+        torch.cuda.synchronize()
+        launches = launches_now()
+        y_ref, q_ref = line.run(x, u, frame_mac="plain")
+        out = line.compared(y, q)
+        rel = parity.rel_rms(out, line.compared(y_ref, q_ref))
+        finite = bool(torch.isfinite(out).all())
+        what = "dithered output" if line.dithered_fidelity else "chain output"
+        print(f"{name} {x.shape[0]}x{line.fid[1]:g}s f64 kernels vs f64 "
+              f"plain ({what}): rel RMS {rel:.3e} (tol {line.limit or 'reported'}), "
+              f"finite {finite}, shape {tuple(out.shape)}, prepare "
+              f"{prep:.2f} s, launches {launches} [{card}]")
+        check(out.shape == x.shape and finite, f"{name} output finite, shaped")
+        if line.limit is not None:
+            check(rel <= line.limit, f"{name} matches the f64 plain path")
+        check(all(launches[n] > 0 for n in fk.F64_KERNELS),
+              f"{name}: every f64 frame kernel launched")
+        check(all(launches[n] == 0 for n in [*fk.F32_KERNELS, "fused_conv"]),
+              f"{name}: no f32 frame kernel and no fused kernel launched")
+        if q is not None:
+            check(launches["error_feedback_quantize"] > 0,
+                  f"{name}: the quantizer launched")
+            lsb = 2.0 ** (line.bits - 1)
+            grid = q * lsb
+            # the quantizer clamps to full scale [-1, 1 - 1 LSB]: the
+            # ladder bounds q against y h clamped the same way
+            yh = y * dither.K_OUTPUT_HEADROOM
+            clipped = float(((yh < -1.0) | (yh > 1.0 - 1.0 / lsb)).double()
+                            .mean())
+            dev_lsb = (q - yh.clamp(-1.0, 1.0 - 1.0 / lsb)) * lsb
+            lim = ladder_bound_lsb(dither.lattice_coeffs(line.k9))
+            max_lsb = float(dev_lsb.abs().max())
+            print(f"{name} dithered output ({line.bits} bits): RMS of q - y h "
+                  f"{float(dev_lsb.pow(2).mean().sqrt()):.4f} LSB, max "
+                  f"{max_lsb:.4f} LSB (ladder bound {lim:.4f}; y h past "
+                  f"full scale in {100 * clipped:.4f}% of samples) [{card}]")
+            check(bool(torch.isfinite(q).all())
+                  and bool((grid == torch.round(grid)).all()),
+                  f"{name}: dithered output on the {line.bits}-bit grid")
+            check(max_lsb <= lim, f"{name}: within the fir ladder's bound")
+        by_path[name] = launches
+        del x, u, y, q, y_ref, q_ref, out
+        xt = parity.timed_signal(line)
+        row = parity.measure_rtf(line, xt)
+        report_rtf(name, xt.shape[0], line.rtf[1], row["walls_s"],
+                   row["peak_gib"] * 2 ** 30, card, "f64")
+        del line, xt
+        torch.cuda.empty_cache()
+    return by_path
+
+
 def main():
     card = phase_environment()
     phase_build(card)
     rows = phase_kernels(card)
+    rows.update(phase_kernels(card, torch.float64))
+    rows["osa_rfft"], self_check = phase_self_check(card)
     headline_rtf = phase_headline(card)
     rows["error_feedback_quantize"] = phase_quantizer(card)
     config6_launches = phase_config6(card)
@@ -698,8 +836,13 @@ def main():
     by_path["prefilter"], _ = phase_prefilter(card)
     by_path["fused2"] = phase_fused2(card, headline_rtf)
     by_path["roomcorr"] = phase_roomcorr(card)
+    by_path.update(phase_parity(card))
+    by_path["self_check"] = self_check
+    f64 = by_path["headline_f64"]
     launches = {**by_path["prefilter"], "error_feedback_quantize":
-                config6_launches["error_feedback_quantize"]}
+                config6_launches["error_feedback_quantize"],
+                **{n: f64[n] for n in fk.F64_KERNELS},
+                "osa_rfft": self_check["osa_rfft"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name], **rows[name],

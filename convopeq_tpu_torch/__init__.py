@@ -6,11 +6,13 @@ counterpart is found at once.  This package imports `torch` and never
 `prepare_folded_convolver` + `process_chain_fused`, `headline.py`), the
 semi-folded render chain with dither (`config6.py`), and the reference
 3-layer convolver with the fused-prefilter chain (`models/nuc.py`,
-`models/convolver.py`, `nuc3.py`).  Their overlap-save partitioned
-convolutions run on an NVIDIA H100 through hand-written CUDA kernels:
-three frame kernels (`ops/frame_conv_kernels.py`) and the fused kernel
-for layers of <= 8 partitions (`ops/fused_conv_kernels.py`), both from
-`csrc/frame_conv.cu`; the dither's quantizer through
+`models/convolver.py`, `nuc3.py`), each in f32 and in native f64, the
+<=1e-9 tier (`parity.py`: the JAX package's f64 parity lines).  Their
+overlap-save partitioned convolutions run on an NVIDIA H100 through
+hand-written CUDA kernels: three frame kernels in f32 and in f64, and the
+forward of materialized frames (`ops/frame_conv_kernels.py`), and the f32
+fused kernel for layers of <= 8 partitions (`ops/fused_conv_kernels.py`),
+all from `csrc/frame_conv.cu`; the dither's quantizer through
 `ops/quantize_kernels.py` (`csrc/error_feedback_quantize.cu`).
 
 Device rule: every function that makes tensors takes an explicit

@@ -12,10 +12,11 @@ device time of one call by kernel (torch.profiler), one line each.
   exp(-n/(ir_len/6)) x 0.02 from a seed of the port's own; the 20-band
   EQ at gains linspace(-4, 4, 20); FilterSpec(384 kHz), block 512.
 - ChainConfig(384 kHz, soft clip on at saturation 0.3, no output
-  headroom), prepared semi-folded in f32 at partition 32768: the LTI
-  prefix folds into one uniform partitioned convolution per channel (the
-  three frame kernels), then makeup -> local 2x soft clip -> output DC
-  blocker run staged.
+  headroom), prepared semi-folded at partition 32768, in f32 (the bench
+  line) or f64 (`config6_chain(dtype=torch.float64)`, the <=1e-9 tier's
+  line in `parity.py`): the LTI prefix folds into one uniform partitioned
+  convolution per channel (the three frame kernels of the dtype), then
+  makeup -> local 2x soft clip -> output DC blocker run staged.
 - Then the adaptive 9th-order lattice shaper (fir ladder) to 24 bits on
   the learned 384k/24/mode-5 factory bank, through the quantizer kernel,
   with the uniforms drawn in the same call from an explicit
@@ -102,7 +103,7 @@ def dither(y, k9, generator):
     u = torch.rand(y.shape + (2,), generator=generator, dtype=y.dtype,
                    device=y.device)
     return apply_dither(y, ADAPTIVE9, SAMPLE_RATE, BIT_DEPTH, uniforms=u,
-                        adaptive_coeffs=k9)
+                        adaptive_coeffs=k9, lattice_ladder="fir")
 
 
 def render(chain: SemiFoldedChain, x, k9, generator):

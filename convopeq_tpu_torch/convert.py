@@ -7,6 +7,11 @@ numbers; a folded prefilter's spectra as a numpy array; a learned
 coefficient bank store as its dict of plain numbers
 (`AdaptiveCoefficientBanks.to_dict()`).  From the same
 prepared state both packages compute the same output.
+
+Spectra come as complex arrays or, as the JAX package holds f64 spectra
+on an accelerator (its dd mode, convopeq_tpu/ops/partitioned_conv.py:
+40-50), as a split (Hr, Hi) pair of f64 arrays; both become complex
+tensors, the pair complex128.
 """
 from __future__ import annotations
 
@@ -19,13 +24,28 @@ from .models.learner import AdaptiveCoefficientBanks
 from .models.nuc import NUCLayerPlan, NUCPlan, NUCState
 
 
+def _spectra(H) -> np.ndarray:
+    """A complex spectra array, or a split (Hr, Hi) pair of real arrays as
+    complex128 (the parts copied exactly)."""
+    if not isinstance(H, tuple):
+        return np.asarray(H)
+    Hr, Hi = (np.asarray(a, np.float64) for a in H)
+    if Hr.shape != Hi.shape:
+        raise ValueError(f"split spectra of shapes {Hr.shape} and "
+                         f"{Hi.shape}")
+    out = np.empty(Hr.shape, np.complex128)
+    out.real, out.imag = Hr, Hi
+    return out
+
+
 def stereo_state_from_arrays(left_spectra, right_spectra, layers,
                              latency: int, block_size: int, ir_len: int,
                              direct=None, device="cuda"
                              ) -> StereoConvolverState:
     """left_spectra / right_spectra: per layer a (num_parts, part_size+1)
-    complex numpy array.  layers: per layer (offset, length, part_size,
-    num_parts, gain) or (..., gain, damping), shared by both channels.
+    complex numpy array or a split (Hr, Hi) pair of f64 arrays.  layers:
+    per layer (offset, length, part_size, num_parts, gain) or (..., gain,
+    damping), shared by both channels.
     direct: None, or the (left, right) direct-head taps as 1-D arrays."""
     dev = resolve_device(device)
     plan = NUCPlan(
@@ -45,7 +65,7 @@ def stereo_state_from_arrays(left_spectra, right_spectra, layers,
                              f"{plan.num_layers} layers")
         out = []
         for lp, H in zip(plan.layers, spectra):
-            H = np.asarray(H)
+            H = _spectra(H)
             if H.shape != (lp.num_parts, lp.part_size + 1):
                 raise ValueError(f"spectra shape {H.shape} does not match "
                                  f"layer {lp}")
@@ -65,9 +85,9 @@ def stereo_state_from_arrays(left_spectra, right_spectra, layers,
 
 def prefilter_from_arrays(spectra, part_size: int, device="cuda"):
     """The JAX package's `prepare_fused_prefilter` result, (Hg, part_size)
-    with Hg as a (P, part_size+1) complex numpy array, as the port's
-    (tensor on `device`, part_size)."""
-    Hg = np.asarray(spectra)
+    with Hg as a (P, part_size+1) complex numpy array or a split (Hr, Hi)
+    pair of f64 arrays, as the port's (tensor on `device`, part_size)."""
+    Hg = _spectra(spectra)
     if Hg.ndim != 2 or Hg.shape[1] != part_size + 1:
         raise ValueError(f"prefilter spectra of shape {Hg.shape} for "
                          f"partition {part_size}")

@@ -1,16 +1,31 @@
 // Overlap-save frame kernels of the partitioned convolution, for Hopper
-// (sm_90a), f32 on the FP32 CUDA cores.  Four kernels, one per TPU
-// Pallas kernel (convopeq_tpu/ops/pallas_gemm_fft.py):
+// (sm_90a), on the CUDA cores: f32 (float2 spectra) and native f64
+// (double2 spectra).  One kernel family per TPU Pallas kernel:
 //
-//   frames_rfft   replaces _fwd_frames_kernel (rfft_frames_two_stage_pallas)
-//   causal_mac    replaces _mac_kernel        (causal_mac_grid_pallas)
-//   irfft_valid   replaces _inv_kernel        (irfft_valid_two_stage_pallas)
+//   frames_rfft   replaces _fwd_frames_kernel (rfft_frames_two_stage_pallas,
+//                 pallas_gemm_fft.py) in f32 and _fwd_dd_kernel
+//                 (pallas_dd_fft.py) in f64
+//   causal_mac    replaces _mac_kernel (causal_mac_grid_pallas) in c64 and
+//                 _dd_mac_kernel in c128
+//   irfft_valid   replaces _inv_kernel (irfft_valid_two_stage_pallas) in
+//                 f32 and _inv_dd_kernel in f64
+//   osa_rfft      replaces _fwd_kernel (rfft_two_stage_pallas): the
+//                 forward transform read from a materialized (…, 2p)
+//                 overlap-save frame, f32
 //   fused_conv    replaces _fused_conv_kernel (fused_conv_frames_pallas):
 //                 the three above in one launch sequence for P <= 8
 //                 partitions, with X and Y kept out of device memory
-//                 (design at fused_rows, below)
+//                 (design at fused_rows, below), f32
 //
-// Layout: spectra in natural bin order, (C, K, p+1) interleaved complex64.
+// The TPU computed its f64 tier in double-f32 arithmetic (Ozaki-sliced
+// bf16 GEMMs, two_sum/two_prod, power-of-two normalization) because it
+// has no f64.  The card has: the f64 kernels are the f32 ones templated
+// on the complex type, with twiddles from the double sincospi.  Each f64
+// kernel moves twice the f32 bytes and reads 16 B of shared memory per
+// value; the row budget of an f64 FFT block (FC_F64_ROW_ELEMS) is its
+// own, so that a block's shared memory does not double.
+//
+// Layout: spectra in natural bin order, (C, K, p+1) interleaved complex.
 // Frame f = c*K + k of channel-stream c.  The overlap-save frame of frame
 // k is [frames[k-1] | frames[k]] (zero prev for k == 0), N = 2p points.
 //
@@ -21,8 +36,8 @@
 // N2-) point FFTs of a group of R rows in shared memory and applies the
 // twiddle, pass 2 does the other factor's FFTs and writes only what the
 // caller keeps.  Row FFTs are radix-4 Stockham autosort in shared memory
-// with a per-block twiddle table from sincospif (exact arguments: every
-// angle is a dyadic multiple of pi).
+// with a per-block twiddle table from sincospif / sincospi (exact
+// arguments: every angle is a dyadic multiple of pi).
 //
 // Every kernel but fused_rows loops over its work with a stride of
 // blockDim.x, so its result does not depend on the block size it is
@@ -36,10 +51,17 @@
 #include <cuda_runtime.h>
 #define FC_LAUNCH(kernel, grid, block, smem, stream) \
     kernel<<<(grid), (block), (smem), (stream)>>>
-#define FC_DYNAMIC_SMEM(name) extern __shared__ float2 name[]
+#define FC_DYNAMIC_SMEM(type, name)                              \
+  extern __shared__ __align__(16) unsigned char fc_smem_raw[]; \
+  type* name = reinterpret_cast<type*>(fc_smem_raw)
 #define FC_BOUNDS(threads, blocks) __launch_bounds__(threads, blocks)
 #else
 #define FC_BOUNDS(threads, blocks)
+#endif
+
+// complex values per f64 FFT block (R rows of M points); a power of two
+#ifndef FC_F64_ROW_ELEMS
+#define FC_F64_ROW_ELEMS 2048
 #endif
 
 #include <stddef.h>
@@ -47,31 +69,63 @@
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kRowElems = 4096;   // R * M complex values per FFT block
 constexpr int kMacSmemMax = 232448;
 
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
+// The complex type T of a kernel: its real type, its row budget (complex
+// values per FFT block) and the twiddle e^{sign * 2 pi i idx / N} for
+// 0 <= idx < N, N a power of two.
+template <class T>
+struct Cx;
 
-// e^{sign * 2 pi i idx / N} for 0 <= idx < N, N a power of two.
-__device__ __forceinline__ float2 twiddle(int idx, int N, float sign) {
-  float s, c;
-  sincospif(sign * 2.0f * (float)idx / (float)N, &s, &c);
-  return make_float2(c, s);
+template <>
+struct Cx<float2> {
+  typedef float R;
+  static constexpr int kRowElems = 4096;
+  static __device__ __forceinline__ float2 make(float x, float y) {
+    return make_float2(x, y);
+  }
+  static __device__ __forceinline__ float2 twiddle(int idx, int N,
+                                                   float sign) {
+    float s, c;
+    sincospif(sign * 2.0f * (float)idx / (float)N, &s, &c);
+    return make_float2(c, s);
+  }
+};
+
+template <>
+struct Cx<double2> {
+  typedef double R;
+  static constexpr int kRowElems = FC_F64_ROW_ELEMS;
+  static __device__ __forceinline__ double2 make(double x, double y) {
+    return make_double2(x, y);
+  }
+  static __device__ __forceinline__ double2 twiddle(int idx, int N,
+                                                    double sign) {
+    double s, c;
+    sincospi(sign * 2.0 * (double)idx / (double)N, &s, &c);
+    return make_double2(c, s);
+  }
+};
+
+template <class T>
+__device__ __forceinline__ T cadd(T a, T b) {
+  return Cx<T>::make(a.x + b.x, a.y + b.y);
+}
+template <class T>
+__device__ __forceinline__ T csub(T a, T b) {
+  return Cx<T>::make(a.x - b.x, a.y - b.y);
+}
+template <class T>
+__device__ __forceinline__ T cmul(T a, T b) {
+  return Cx<T>::make(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
 // tw[j] = e^{sign * 2 pi i j / M}, j < M.
-__device__ void fill_twiddles(float2* tw, int lM, float sign) {
+template <class T>
+__device__ void fill_twiddles(T* tw, int lM, typename Cx<T>::R sign) {
   const int M = 1 << lM;
   for (int j = threadIdx.x; j < M; j += blockDim.x)
-    tw[j] = twiddle(j, M, sign);
+    tw[j] = Cx<T>::twiddle(j, M, sign);
 }
 
 // Row stride of an FFT block holding R = 2^lR rows: M plus a pad, so that
@@ -93,8 +147,8 @@ __host__ __device__ __forceinline__ int row_stride(int M, int lR) {
 // with W = tw[1].  Returns the buffer that holds the natural-order
 // result.  Starts and ends with a barrier, so callers may fill `a` and
 // `tw` right before and read the result right after.
-__device__ float2* fft_rows(float2* a, float2* b, const float2* tw, int lM,
-                            int lR, int ld) {
+template <class T>
+__device__ T* fft_rows(T* a, T* b, const T* tw, int lM, int lR, int ld) {
   const int M = 1 << lM;
   const int quarter = M >> 2;
   int ls = 0;
@@ -102,25 +156,25 @@ __device__ float2* fft_rows(float2* a, float2* b, const float2* tw, int lM,
     const int s = 1 << ls;
     const int lq = lM - 2;                     // butterflies per row: M/4
     __syncthreads();
-    const float2 w4 = tw[quarter];
+    const T w4 = tw[quarter];
     for (int t = threadIdx.x; t < (1 << (lR + lq)); t += blockDim.x) {
       const int r = t >> lq;
       const int u = t & (quarter - 1);
       const int pp = u >> ls;
       const int q = u & (s - 1);
-      const float2* x = a + r * ld + q + s * pp;
-      float2* y = b + r * ld + q + 4 * s * pp;
-      const float2 a0 = x[0], a1 = x[quarter];
-      const float2 a2 = x[2 * quarter], a3 = x[3 * quarter];
-      const float2 b0 = cadd(a0, a2), b1 = csub(a0, a2);
-      const float2 b2 = cadd(a1, a3), b3 = cmul(csub(a1, a3), w4);
+      const T* x = a + r * ld + q + s * pp;
+      T* y = b + r * ld + q + 4 * s * pp;
+      const T a0 = x[0], a1 = x[quarter];
+      const T a2 = x[2 * quarter], a3 = x[3 * quarter];
+      const T b0 = cadd(a0, a2), b1 = csub(a0, a2);
+      const T b2 = cadd(a1, a3), b3 = cmul(csub(a1, a3), w4);
       const int w = pp * s;
       y[0] = cadd(b0, b2);
       y[s] = cmul(cadd(b1, b3), tw[w]);
       y[2 * s] = cmul(csub(b0, b2), tw[2 * w]);
       y[3 * s] = cmul(csub(b1, b3), tw[3 * w]);
     }
-    float2* tmp = a;
+    T* tmp = a;
     a = b;
     b = tmp;
   }
@@ -130,12 +184,12 @@ __device__ float2* fft_rows(float2* a, float2* b, const float2* tw, int lM,
     for (int t = threadIdx.x; t < (1 << (lR + lM - 1)); t += blockDim.x) {
       const int r = t >> (lM - 1);
       const int q = t & (half - 1);
-      const float2 A = a[r * ld + q];
-      const float2 B = a[r * ld + q + half];
+      const T A = a[r * ld + q];
+      const T B = a[r * ld + q + half];
       b[r * ld + q] = cadd(A, B);
       b[r * ld + q + half] = csub(A, B);
     }
-    float2* tmp = a;
+    T* tmp = a;
     a = b;
     b = tmp;
   }
@@ -143,61 +197,66 @@ __device__ float2* fft_rows(float2* a, float2* b, const float2* tw, int lM,
   return a;
 }
 
-// ---- forward: frames (C, K, p) f32 -> X (C, K, p+1) c64 -------------
+// ---- forward: frames (C, K, p) real -> X (C, K, p+1) complex ----------
 // osa index n = n1*N2 + n2;  bin k = k1 + N1*k2.
 
 // Pass 1: block (f, group of R columns n2): N1-point FFT over n1 of
-// osa[n1*N2 + n2], times W_N^{n2*k1}, to scratch[f][k1][n2].
-__global__ void fwd_pass1(const float* __restrict__ frames,
-                          float2* __restrict__ scratch, int K, int p,
-                          int lN1, int N2, int lR) {
-  FC_DYNAMIC_SMEM(fc_smem);
+// osa[n1*N2 + n2], times W_N^{n2*k1}, to scratch[f][k1][n2].  The osa
+// frame is [frames[k-1] | frames[k]] read from the frames, or, kOsa, the
+// materialized (…, 2p) frame f of `in`.
+template <class T, bool kOsa>
+__global__ void fwd_pass1(const typename Cx<T>::R* __restrict__ in,
+                          T* __restrict__ scratch, int K, int p, int lN1,
+                          int N2, int lR) {
+  typedef typename Cx<T>::R Real;
+  FC_DYNAMIC_SMEM(T, fc_smem);
   const int N1 = 1 << lN1, R = 1 << lR, ld = row_stride(N1, lR);
-  float2* a = fc_smem;
-  float2* b = a + R * ld;
-  float2* tw = b + R * ld;
+  T* a = fc_smem;
+  T* b = a + R * ld;
+  T* tw = b + R * ld;
   const int f = blockIdx.x;
   const int k = f % K;
   const int n20 = blockIdx.y * R;
-  const float* cur = frames + (size_t)f * p;
-  fill_twiddles(tw, lN1, -1.0f);
+  const Real* cur = in + (size_t)f * (kOsa ? 2 * p : p);
+  fill_twiddles(tw, lN1, Real(-1));
   for (int e = threadIdx.x; e < R * N1; e += blockDim.x) {
     const int n1 = e >> lR;
     const int r = e & (R - 1);
     const int j = n1 * N2 + n20 + r;          // index in the osa frame
     // j < p reads frame k-1 (cur - p), zero before the first frame
-    const float v = (j >= p || k > 0) ? cur[j - p] : 0.0f;
-    a[r * ld + n1] = make_float2(v, 0.0f);
+    const Real v = kOsa ? cur[j] : (j >= p || k > 0) ? cur[j - p] : Real(0);
+    a[r * ld + n1] = Cx<T>::make(v, Real(0));
   }
-  const float2* res = fft_rows(a, b, tw, lN1, lR, ld);
+  const T* res = fft_rows(a, b, tw, lN1, lR, ld);
   const int N = N1 * N2;
   for (int e = threadIdx.x; e < R * N1; e += blockDim.x) {
     const int k1 = e >> lR;
     const int r = e & (R - 1);
     const int n2 = n20 + r;
     scratch[((size_t)f * N1 + k1) * N2 + n2] =
-        cmul(res[r * ld + k1], twiddle(n2 * k1, N, -1.0f));
+        cmul(res[r * ld + k1], Cx<T>::twiddle(n2 * k1, N, Real(-1)));
   }
 }
 
 // Pass 2: block (f, group of R rows k1): N2-point FFT over n2, keeping
 // bins k = k1 + N1*k2 <= p.
-__global__ void fwd_pass2(const float2* __restrict__ scratch,
-                          float2* __restrict__ X, int p, int N1, int lN2,
-                          int lR) {
-  FC_DYNAMIC_SMEM(fc_smem);
+template <class T>
+__global__ void fwd_pass2(const T* __restrict__ scratch, T* __restrict__ X,
+                          int p, int N1, int lN2, int lR) {
+  typedef typename Cx<T>::R Real;
+  FC_DYNAMIC_SMEM(T, fc_smem);
   const int N2 = 1 << lN2, R = 1 << lR, ld = row_stride(N2, lR);
-  float2* a = fc_smem;
-  float2* b = a + R * ld;
-  float2* tw = b + R * ld;
+  T* a = fc_smem;
+  T* b = a + R * ld;
+  T* tw = b + R * ld;
   const int f = blockIdx.x;
   const int k10 = blockIdx.y * R;
-  const float2* src = scratch + ((size_t)f * N1 + k10) * N2;
-  fill_twiddles(tw, lN2, -1.0f);
+  const T* src = scratch + ((size_t)f * N1 + k10) * N2;
+  fill_twiddles(tw, lN2, Real(-1));
   for (int e = threadIdx.x; e < R * N2; e += blockDim.x)
     a[(e >> lN2) * ld + (e & (N2 - 1))] = src[e];
-  const float2* res = fft_rows(a, b, tw, lN2, lR, ld);
-  float2* Xf = X + (size_t)f * (p + 1);
+  const T* res = fft_rows(a, b, tw, lN2, lR, ld);
+  T* Xf = X + (size_t)f * (p + 1);
   const int nk2 = (N2 >> 1) + 1;
   for (int e = threadIdx.x; e < R * nk2; e += blockDim.x) {
     const int k2 = e >> lR;
@@ -207,7 +266,7 @@ __global__ void fwd_pass2(const float2* __restrict__ scratch,
   }
 }
 
-// ---- inverse: Y (C, K, p+1) c64 -> y (C, K, p) f32, valid half -------
+// ---- inverse: Y (C, K, p+1) complex -> y (C, K, p) real, valid half ----
 // Hermitian spectrum Z[k] (Z[N-k] = conj Z[k]; DC and Nyquist imaginary
 // parts ignored), y[n] = (1/N) sum_k Z[k] e^{+2 pi i k n / N} for
 // n in [p, 2p).  k = ka + N1*kb, n = nb + N2*na: the valid half is
@@ -215,41 +274,42 @@ __global__ void fwd_pass2(const float2* __restrict__ scratch,
 
 // Pass 1: block (f, group of R values ka): N2-point inverse FFT over kb,
 // times e^{+2 pi i ka*nb / N}, to scratch[f][nb][ka].
-__global__ void inv_pass1(const float2* __restrict__ Y,
-                          float2* __restrict__ scratch, int p, int N1,
-                          int lN2, int lR) {
-  FC_DYNAMIC_SMEM(fc_smem);
+template <class T>
+__global__ void inv_pass1(const T* __restrict__ Y, T* __restrict__ scratch,
+                          int p, int N1, int lN2, int lR) {
+  typedef typename Cx<T>::R Real;
+  FC_DYNAMIC_SMEM(T, fc_smem);
   const int N2 = 1 << lN2, R = 1 << lR, ld = row_stride(N2, lR);
-  float2* a = fc_smem;
-  float2* b = a + R * ld;
-  float2* tw = b + R * ld;
+  T* a = fc_smem;
+  T* b = a + R * ld;
+  T* tw = b + R * ld;
   const int f = blockIdx.x;
   const int ka0 = blockIdx.y * R;
   const int N = N1 * N2;
-  const float2* Yf = Y + (size_t)f * (p + 1);
-  fill_twiddles(tw, lN2, 1.0f);
+  const T* Yf = Y + (size_t)f * (p + 1);
+  fill_twiddles(tw, lN2, Real(1));
   for (int e = threadIdx.x; e < R * N2; e += blockDim.x) {
     const int kb = e >> lR;
     const int r = e & (R - 1);
     const int kk = ka0 + r + N1 * kb;
-    float2 v;
+    T v;
     if (kk == 0 || kk == p) {
-      v = make_float2(Yf[kk].x, 0.0f);
+      v = Cx<T>::make(Yf[kk].x, Real(0));
     } else if (kk < p) {
       v = Yf[kk];
     } else {
-      const float2 t = Yf[N - kk];
-      v = make_float2(t.x, -t.y);
+      const T t = Yf[N - kk];
+      v = Cx<T>::make(t.x, -t.y);
     }
     a[r * ld + kb] = v;
   }
-  const float2* res = fft_rows(a, b, tw, lN2, lR, ld);
+  const T* res = fft_rows(a, b, tw, lN2, lR, ld);
   for (int e = threadIdx.x; e < R * N2; e += blockDim.x) {
     const int nb = e >> lR;
     const int r = e & (R - 1);
     const int ka = ka0 + r;
     scratch[((size_t)f * N2 + nb) * N1 + ka] =
-        cmul(res[r * ld + nb], twiddle(ka * nb, N, 1.0f));
+        cmul(res[r * ld + nb], Cx<T>::twiddle(ka * nb, N, Real(1)));
   }
 }
 
@@ -257,35 +317,36 @@ __global__ void inv_pass1(const float2* __restrict__ Y,
 // real part of the outputs na >= N1/2 only, scaled by 1/N.  The scratch
 // holds frame f as [nb][ka] (from inv_pass1) or, kByRows, as [ka][nb]
 // (from fused_rows, which writes in place of the forward's [k1][n2]).
-template <bool kByRows>
-__global__ void inv_pass2(const float2* __restrict__ scratch,
-                          float* __restrict__ y, int p, int lN1, int N2,
-                          int lR) {
-  FC_DYNAMIC_SMEM(fc_smem);
+template <class T, bool kByRows>
+__global__ void inv_pass2(const T* __restrict__ scratch,
+                          typename Cx<T>::R* __restrict__ y, int p, int lN1,
+                          int N2, int lR) {
+  typedef typename Cx<T>::R Real;
+  FC_DYNAMIC_SMEM(T, fc_smem);
   const int N1 = 1 << lN1, R = 1 << lR, ld = row_stride(N1, lR);
-  float2* a = fc_smem;
-  float2* b = a + R * ld;
-  float2* tw = b + R * ld;
+  T* a = fc_smem;
+  T* b = a + R * ld;
+  T* tw = b + R * ld;
   const int f = blockIdx.x;
   const int nb0 = blockIdx.y * R;
-  fill_twiddles(tw, lN1, 1.0f);
+  fill_twiddles(tw, lN1, Real(1));
   if (kByRows) {
     // neighbouring threads take neighbouring nb: contiguous reads
-    const float2* src = scratch + (size_t)f * N1 * N2 + nb0;
+    const T* src = scratch + (size_t)f * N1 * N2 + nb0;
     for (int e = threadIdx.x; e < R * N1; e += blockDim.x) {
       const int ka = e >> lR;
       const int r = e & (R - 1);
       a[r * ld + ka] = src[(size_t)ka * N2 + r];
     }
   } else {
-    const float2* src = scratch + ((size_t)f * N2 + nb0) * N1;
+    const T* src = scratch + ((size_t)f * N2 + nb0) * N1;
     for (int e = threadIdx.x; e < R * N1; e += blockDim.x)
       a[(e >> lN1) * ld + (e & (N1 - 1))] = src[e];
   }
-  const float2* res = fft_rows(a, b, tw, lN1, lR, ld);
-  const float scale = 1.0f / (float)(N1 * N2);
+  const T* res = fft_rows(a, b, tw, lN1, lR, ld);
+  const Real scale = Real(1) / (Real)(N1 * N2);
   const int hA = N1 >> 1;
-  float* yf = y + (size_t)f * p;
+  Real* yf = y + (size_t)f * p;
   for (int e = threadIdx.x; e < R * hA; e += blockDim.x) {
     const int i = e >> lR;
     const int r = e & (R - 1);
@@ -297,34 +358,36 @@ __global__ void inv_pass2(const float2* __restrict__ scratch,
 // Block (c, tile of bt bins); each bin walks the frames in order, keeping
 // the last P frame values of its own bin in a shared-memory ring and its
 // P partition values beside them.  No bin reads another bin's slots, so
-// no barrier is needed.  j ascends from 0, as in the TPU kernel.
-__global__ void causal_mac_kernel(const float2* __restrict__ X,
-                                  const float2* __restrict__ H,
-                                  float2* __restrict__ Yout, int K, int B,
-                                  int P, int bt) {
-  FC_DYNAMIC_SMEM(fc_smem);
-  float2* ring = fc_smem;          // [slot][lb]
-  float2* hs = fc_smem + P * bt;   // [j][lb]
+// no barrier is needed.  j ascends from 0, as in the TPU kernels.
+template <class T>
+__global__ void causal_mac_kernel(const T* __restrict__ X,
+                                  const T* __restrict__ H,
+                                  T* __restrict__ Yout, int K, int B, int P,
+                                  int bt) {
+  typedef typename Cx<T>::R Real;
+  FC_DYNAMIC_SMEM(T, fc_smem);
+  T* ring = fc_smem;               // [slot][lb]
+  T* hs = fc_smem + P * bt;        // [j][lb]
   const int c = blockIdx.x;
   const int b0 = blockIdx.y * bt;
   const int nb = (B - b0 < bt) ? (B - b0) : bt;
   for (int lb = threadIdx.x; lb < nb; lb += blockDim.x) {
     const int b = b0 + lb;
     for (int j = 0; j < P; ++j) hs[j * bt + lb] = H[(size_t)j * B + b];
-    const float2* Xc = X + (size_t)c * K * B + b;
-    float2* Yc = Yout + (size_t)c * K * B + b;
+    const T* Xc = X + (size_t)c * K * B + b;
+    T* Yc = Yout + (size_t)c * K * B + b;
     int slot = 0;                  // ring slot of frame f: f % P
-    float2 xn = Xc[0];
+    T xn = Xc[0];
     for (int f = 0; f < K; ++f) {
-      const float2 xf = xn;
+      const T xf = xn;
       if (f + 1 < K) xn = Xc[(size_t)(f + 1) * B];
       ring[slot * bt + lb] = xf;
       const int jmax = (f < P - 1) ? f : (P - 1);
-      float2 acc = make_float2(0.0f, 0.0f);
+      T acc = Cx<T>::make(Real(0), Real(0));
       int s = slot;
       for (int j = 0; j <= jmax; ++j) {
-        const float2 xv = ring[s * bt + lb];
-        const float2 hv = hs[j * bt + lb];
+        const T xv = ring[s * bt + lb];
+        const T hv = hs[j * bt + lb];
         acc.x += xv.x * hv.x - xv.y * hv.y;
         acc.y += xv.x * hv.y + xv.y * hv.x;
         s = (s == 0) ? (P - 1) : (s - 1);
@@ -335,7 +398,7 @@ __global__ void causal_mac_kernel(const float2* __restrict__ X,
   }
 }
 
-// ---- fused convolution, P <= 8: frames (C, K, p) -> y (C, K, p) ------
+// ---- fused convolution, P <= 8: frames (C, K, p) -> y (C, K, p), f32 --
 // y[c,k,:] = valid half of irfft(sum_{j<P, j<=k} X[c,k-j,:] H[j,:]).
 //
 // On the TPU the whole pipeline ran per frame tile in VMEM, with a ring
@@ -362,7 +425,7 @@ __global__ void causal_mac_kernel(const float2* __restrict__ X,
 //      twice on an SM (128 registers a thread at P = 8, no spills).
 //      The result, times the inverse twiddle, goes back in place of the
 //      rows it was read from, as scratch[f][ka][nb].
-//   3. inv_pass2<true>: the N1-point inverse FFTs, valid half only.
+//   3. inv_pass2<float2, true>: the N1-point inverse FFTs, valid half.
 //
 // Device-memory traffic a frame: 4p B of samples in, 2 x 32p B of
 // scratch round trips, 4p B out (72p B), against 104p B for the three
@@ -386,7 +449,7 @@ template <int P>
 __global__ void FC_BOUNDS(kMidThreads, 2)
 fused_rows(float2* __restrict__ scratch, const float2* __restrict__ H,
            int K, int p, int N1, int lN2, int lR) {
-  FC_DYNAMIC_SMEM(fc_smem);
+  FC_DYNAMIC_SMEM(float2, fc_smem);
   const int lRs = lR + kLogMidFrames;                // rows of a step
   const int N2 = 1 << lN2, R = 1 << lR, ld = row_stride(N2, lRs);
   const int N = N1 * N2;
@@ -421,7 +484,7 @@ fused_rows(float2* __restrict__ scratch, const float2* __restrict__ H,
       h[i][j] = make_float2(v.x, conj * v.y);
       ring[i][j] = make_float2(0.0f, 0.0f);
     }
-    tw[i] = twiddle((k10 + r) * q, N, 1.0f);
+    tw[i] = Cx<float2>::twiddle((k10 + r) * q, N, 1.0f);
   }
 
   // frame f of this block's rows at rows + f * N; frames past K are
@@ -491,10 +554,11 @@ bool pow2_partition(int p) {
   return p >= 512 && p <= 65536 && (p & (p - 1)) == 0;
 }
 
-// log2 of the rows per FFT block for row length M = 2^lM, limited by
-// the number of rows 2^lrows
+// log2 of the rows per FFT block of complex type T for row length
+// M = 2^lM, limited by the number of rows 2^lrows
+template <class T>
 int fft_rows_log2(int lM, int lrows) {
-  int lR = ilog2(kRowElems) - lM;
+  int lR = ilog2(Cx<T>::kRowElems) - lM;
   if (lR < 0) lR = 0;
   if (lR > lrows) lR = lrows;
   return lR;
@@ -512,14 +576,15 @@ int launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// Launches one transform pass: 2^lR rows of 2^lM points a block, two
-// row buffers and the twiddle table in dynamic shared memory.
-template <class Kernel, class... Args>
+// Launches one transform pass of complex type T: 2^lR rows of 2^lM
+// points a block, two row buffers and the twiddle table in dynamic
+// shared memory.
+template <class T, class Kernel, class... Args>
 int launch_fft(Kernel kernel, dim3 grid, int lR, int lM, cudaStream_t st,
                Args... args) {
   const size_t smem =
       (size_t)(2 * (1 << lR) * row_stride(1 << lM, lR) + (1 << lM)) *
-      sizeof(float2);
+      sizeof(T);
   return launch_kernel(kernel, grid, kThreads, smem, st, args...);
 }
 
@@ -535,54 +600,116 @@ int launch_fused_rows(int C, int N1, int lN2, cudaStream_t st,
                        st, scratch, H, K, p, N1, lN2, lR);
 }
 
+// The forward transform in T: frames (C, K, p) or, kOsa, materialized
+// overlap-save frames (C, K, 2p) -> X (C, K, p+1); scratch C*K*2p values.
+template <class T, bool kOsa>
+int frames_rfft_impl(const void* in, void* scratch, void* X, int C, int K,
+                     int p, void* stream) {
+  typedef typename Cx<T>::R Real;
+  if (!pow2_partition(p) || C < 1 || K < 1) return -1;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int lN = ilog2(2 * p);
+  const int lN1 = lN / 2, lN2 = lN - lN1;
+  const int N1 = 1 << lN1, N2 = 1 << lN2;
+  const int rows = C * K;
+  const int lR1 = fft_rows_log2<T>(lN1, lN2);
+  const int rc = launch_fft<T>(fwd_pass1<T, kOsa>, dim3(rows, N2 >> lR1),
+                               lR1, lN1, st, (const Real*)in, (T*)scratch, K,
+                               p, lN1, N2, lR1);
+  if (rc != 0) return rc;
+  const int lR2 = fft_rows_log2<T>(lN2, lN1);
+  return launch_fft<T>(fwd_pass2<T>, dim3(rows, N1 >> lR2), lR2, lN2, st,
+                       (const T*)scratch, (T*)X, p, N1, lN2, lR2);
+}
+
+// The inverse in T: Y (C, K, p+1) -> y (C, K, p); scratch C*K*2p values.
+template <class T>
+int irfft_valid_impl(const void* Y, void* scratch, void* y, int C, int K,
+                     int p, void* stream) {
+  typedef typename Cx<T>::R Real;
+  if (!pow2_partition(p) || C < 1 || K < 1) return -1;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int lN = ilog2(2 * p);
+  const int lN1 = lN / 2, lN2 = lN - lN1;
+  const int N1 = 1 << lN1, N2 = 1 << lN2;
+  const int rows = C * K;
+  const int lR1 = fft_rows_log2<T>(lN2, lN1);
+  const int rc = launch_fft<T>(inv_pass1<T>, dim3(rows, N1 >> lR1), lR1,
+                               lN2, st, (const T*)Y, (T*)scratch, p, N1, lN2,
+                               lR1);
+  if (rc != 0) return rc;
+  const int lR2 = fft_rows_log2<T>(lN1, lN2);
+  return launch_fft<T>(inv_pass2<T, false>, dim3(rows, N2 >> lR2), lR2, lN1,
+                       st, (const T*)scratch, (Real*)y, p, lN1, N2, lR2);
+}
+
+// Bins per MAC block of complex type T for P partitions (the ring and H
+// in shared memory), or 0 when P does not fit.
+template <class T>
+int mac_tile(int P) {
+  for (int bt = 128; bt >= 32; bt >>= 1)
+    if ((size_t)2 * P * bt * sizeof(T) <= (size_t)kMacSmemMax) return bt;
+  return 0;
+}
+
+template <class T>
+int causal_mac_impl(const void* X, const void* H, void* Y, int C, int K,
+                    int B, int P, void* stream) {
+  const int bt = mac_tile<T>(P);
+  if (bt == 0 || C < 1 || K < 1 || B < 1) return -1;
+  return launch_kernel(causal_mac_kernel<T>, dim3(C, (B + bt - 1) / bt), bt,
+                       (size_t)2 * P * bt * sizeof(T), (cudaStream_t)stream,
+                       (const T*)X, (const T*)H, (T*)Y, K, B, P, bt);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bins per MAC block for P partitions, or 0 when P does not fit.
-int frame_conv_mac_tile(int P) {
-  for (int bt = 128; bt >= 32; bt >>= 1)
-    if ((size_t)2 * P * bt * sizeof(float2) <= (size_t)kMacSmemMax)
-      return bt;
-  return 0;
-}
+// Bins per MAC block for P partitions, or 0 when P does not fit: complex64
+// and complex128.
+int frame_conv_mac_tile(int P) { return mac_tile<float2>(P); }
+int frame_conv_mac_tile_c128(int P) { return mac_tile<double2>(P); }
 
-// Complex scratch the transforms need: C*K*2p complex64 values.
-// Returns 0 on success, -1 for an unsupported shape, else the CUDA error.
+// Each entry returns 0 on success, -1 for an unsupported shape, else the
+// CUDA error.  The transforms take a complex scratch of C*K*2p values of
+// their complex type.
 int frames_rfft_f32(const void* frames, void* scratch, void* X, int C,
                     int K, int p, void* stream) {
-  if (!pow2_partition(p) || C < 1 || K < 1) return -1;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int lN = ilog2(2 * p);
-  const int lN1 = lN / 2, lN2 = lN - lN1;
-  const int N1 = 1 << lN1, N2 = 1 << lN2;
-  const int rows = C * K;
-  const int lR1 = fft_rows_log2(lN1, lN2);
-  const int rc = launch_fft(fwd_pass1, dim3(rows, N2 >> lR1), lR1, lN1, st,
-                            (const float*)frames, (float2*)scratch, K, p,
-                            lN1, N2, lR1);
-  if (rc != 0) return rc;
-  const int lR2 = fft_rows_log2(lN2, lN1);
-  return launch_fft(fwd_pass2, dim3(rows, N1 >> lR2), lR2, lN2, st,
-                    (const float2*)scratch, (float2*)X, p, N1, lN2, lR2);
+  return frames_rfft_impl<float2, false>(frames, scratch, X, C, K, p,
+                                         stream);
+}
+
+int frames_rfft_f64(const void* frames, void* scratch, void* X, int C,
+                    int K, int p, void* stream) {
+  return frames_rfft_impl<double2, false>(frames, scratch, X, C, K, p,
+                                          stream);
+}
+
+// osa (C, K, 2p) f32 -> X (C, K, p+1) c64: rfft of each materialized frame
+int osa_rfft_f32(const void* osa, void* scratch, void* X, int C, int K,
+                 int p, void* stream) {
+  return frames_rfft_impl<float2, true>(osa, scratch, X, C, K, p, stream);
 }
 
 int irfft_valid_f32(const void* Y, void* scratch, void* y, int C, int K,
                     int p, void* stream) {
-  if (!pow2_partition(p) || C < 1 || K < 1) return -1;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int lN = ilog2(2 * p);
-  const int lN1 = lN / 2, lN2 = lN - lN1;
-  const int N1 = 1 << lN1, N2 = 1 << lN2;
-  const int rows = C * K;
-  const int lR1 = fft_rows_log2(lN2, lN1);
-  const int rc = launch_fft(inv_pass1, dim3(rows, N1 >> lR1), lR1, lN2, st,
-                            (const float2*)Y, (float2*)scratch, p, N1, lN2,
-                            lR1);
-  if (rc != 0) return rc;
-  const int lR2 = fft_rows_log2(lN1, lN2);
-  return launch_fft(inv_pass2<false>, dim3(rows, N2 >> lR2), lR2, lN1, st,
-                    (const float2*)scratch, (float*)y, p, lN1, N2, lR2);
+  return irfft_valid_impl<float2>(Y, scratch, y, C, K, p, stream);
+}
+
+int irfft_valid_f64(const void* Y, void* scratch, void* y, int C, int K,
+                    int p, void* stream) {
+  return irfft_valid_impl<double2>(Y, scratch, y, C, K, p, stream);
+}
+
+int causal_mac_c64(const void* X, const void* H, void* Y, int C, int K,
+                   int B, int P, void* stream) {
+  return causal_mac_impl<float2>(X, H, Y, C, K, B, P, stream);
+}
+
+int causal_mac_c128(const void* X, const void* H, void* Y, int C, int K,
+                    int B, int P, void* stream) {
+  return causal_mac_impl<double2>(X, H, Y, C, K, B, P, stream);
 }
 
 // frames (C, K, p) f32, H (P, p+1) c64 -> y (C, K, p) f32, for
@@ -597,9 +724,10 @@ int fused_conv_f32(const void* frames, const void* H, void* scratch,
   const int rows = C * K;
   float2* s = (float2*)scratch;
   const float2* h = (const float2*)H;
-  const int lR1 = fft_rows_log2(lN1, lN2);
-  int rc = launch_fft(fwd_pass1, dim3(rows, N2 >> lR1), lR1, lN1, st,
-                      (const float*)frames, s, K, p, lN1, N2, lR1);
+  const int lR1 = fft_rows_log2<float2>(lN1, lN2);
+  int rc = launch_fft<float2>(fwd_pass1<float2, false>,
+                              dim3(rows, N2 >> lR1), lR1, lN1, st,
+                              (const float*)frames, s, K, p, lN1, N2, lR1);
   if (rc != 0) return rc;
   switch (P) {
     case 1: rc = launch_fused_rows<1>(C, N1, lN2, st, s, h, K, p); break;
@@ -612,24 +740,10 @@ int fused_conv_f32(const void* frames, const void* H, void* scratch,
     default: rc = launch_fused_rows<8>(C, N1, lN2, st, s, h, K, p); break;
   }
   if (rc != 0) return rc;
-  const int lR3 = fft_rows_log2(lN1, lN2);
-  return launch_fft(inv_pass2<true>, dim3(rows, N2 >> lR3), lR3, lN1, st,
-                    (const float2*)s, (float*)y, p, lN1, N2, lR3);
-}
-
-int causal_mac_c64(const void* X, const void* H, void* Y, int C, int K,
-                   int B, int P, void* stream) {
-  const int bt = frame_conv_mac_tile(P);
-  if (bt == 0 || C < 1 || K < 1 || B < 1) return -1;
-  const size_t smem = (size_t)2 * P * bt * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      causal_mac_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  FC_LAUNCH(causal_mac_kernel, dim3(C, (B + bt - 1) / bt), dim3(bt), smem,
-            (cudaStream_t)stream)((const float2*)X, (const float2*)H,
-                                  (float2*)Y, K, B, P, bt);
-  return (int)cudaGetLastError();
+  const int lR3 = fft_rows_log2<float2>(lN1, lN2);
+  return launch_fft<float2>(inv_pass2<float2, true>, dim3(rows, N2 >> lR3),
+                            lR3, lN1, st, (const float2*)s, (float*)y, p,
+                            lN1, N2, lR3);
 }
 
 }  // extern "C"

@@ -6,10 +6,10 @@ per call.
     python -m convopeq_tpu_torch.headline
 
 prints one JSON line with the realtime factor on the card (64 streams x
-60 s).  The IR is made as bench.py makes it (seed 0, decay
-exp(-n/(ir_len/10)), x0.02, EQ gains linspace(-4, 4, 20),
-FilterSpec(48000), block 512); the input is normal noise x0.25 made on
-the device from a seed.
+60 s, f32; the f64 line is `parity.py`'s headline_f64).  The IR is made
+as bench.py makes it (seed 0, decay exp(-n/(ir_len/10)), x0.02, EQ gains
+linspace(-4, 4, 20), FilterSpec(48000), block 512); the input is normal
+noise x0.25 made on the device from a seed.
 """
 from __future__ import annotations
 

@@ -243,14 +243,17 @@ def process_chain_fused(x, cfg: ChainConfig, conv_state: StereoConvolverState,
     return y
 
 
-def throughput_partition_size(ir_len: int) -> int:
+def throughput_partition_size(ir_len: int, f64: bool = False) -> int:
     """Partition size for the offline single-layer throughput plan: one
     uniform layer (every extra layer is an extra pass over the signal),
-    p = next_pow2(ir_len / 64), at least 1024, capped at 32768 (the JAX
-    package's f32 cap; its f64 cap waits for the f64 tier).  The optimum
-    was chosen on a TPU; where it lies on the H100 is not measured yet."""
+    p = next_pow2(ir_len / 64), at least 1024, capped at 32768 in f32 and
+    at 65536 in f64 (`f64=True`), the caps of the JAX package's f32 path
+    and of its f64 path without the TPU's dd kernels.  On the H100 the
+    1M-tap headline ran fastest at p = 32768 in f32 and at p = 65536 in
+    f64, where the MAC costs more beside the transforms (PERF.md, the
+    partition sweeps of `python -m convopeq_tpu_torch.sweep partition`)."""
     p = next_pow2(max(1024, ir_len // 64))
-    return min(p, 32768)
+    return min(p, MAX_PART if f64 else 32768)
 
 
 def prepare_folded_convolver(ir, block_size: int, spec, cfg: ChainConfig,
@@ -304,7 +307,8 @@ def prepare_folded_convolver(ir, block_size: int, spec, cfg: ChainConfig,
                               apply_spectrum_filter=False,
                               unit_layer_gains=True, device=device)
     if partition == "auto":
-        partition = throughput_partition_size(combined.shape[-1])
+        partition = throughput_partition_size(
+            combined.shape[-1], f64=(dtype == torch.float64))
     return StereoConvolverState(
         left=nuc_prepare_uniform(cj[0], int(partition), block_size, device),
         right=nuc_prepare_uniform(cj[1], int(partition), block_size, device))
@@ -326,7 +330,8 @@ def _prepare_fused2(combined, block_size: int, p_near: int = 16384,
     near_len = near_parts * p_near
     if not fused_conv_supported(p_near, near_parts) or n <= near_len:
         part = (p_near if fused_conv_supported(p_near, near_parts)
-                else throughput_partition_size(n))
+                else throughput_partition_size(
+                    n, f64=(combined.dtype == torch.float64)))
         return StereoConvolverState(
             left=nuc_prepare_uniform(combined[0], part, block_size, device),
             right=nuc_prepare_uniform(combined[1], part, block_size, device))

@@ -4,7 +4,8 @@ and the engine's room-correction convolver stage.
     python -m convopeq_tpu_torch.nuc3 [--profile]
 
 prints three JSON lines, each beside the card's name and power limit:
-the realtime factor of the prefilter chain (64 streams x 60 s), of the
+the realtime factor, in f32, of the prefilter chain (64 streams x 60 s;
+in f64 it is `parity.py`'s prefilter_f64 line), of the
 headline with partition="fused2" (64 streams x 60 s) and of the
 room-correction convolver (256 streams x 10 s); with --profile, after
 each, the device time of one call by kernel (torch.profiler).

@@ -6,7 +6,9 @@ flags and signature table.  The build happens at first use, never at
 import, and is keyed by a hash of the source and its flags:
 `convopeq_tpu_torch/_build/` holds one library per source version.  A
 failed build raises with nvcc's stderr.  `build_all` starts one nvcc per
-source at once and waits for all of them.
+source at once and waits for all of them; given other `Library` entries
+(another tree's source, extra -D flags) it builds those, and `bind` sets
+their signatures (`python -m convopeq_tpu_torch.sweep`).
 
 The quantizer library is built with `-fmad=false`: its error-feedback
 loops are chaotic at the ULP level, and a contracted multiply-add flips
@@ -50,10 +52,15 @@ LIBRARIES = {
     "frame_conv": Library(
         "frame_conv", _PKG / "csrc" / "frame_conv.cu", NVCC_FLAGS, {
             "frames_rfft_f32": [_P, _P, _P, _I, _I, _I, _P],
+            "frames_rfft_f64": [_P, _P, _P, _I, _I, _I, _P],
+            "osa_rfft_f32": [_P, _P, _P, _I, _I, _I, _P],
             "irfft_valid_f32": [_P, _P, _P, _I, _I, _I, _P],
+            "irfft_valid_f64": [_P, _P, _P, _I, _I, _I, _P],
             "causal_mac_c64": [_P, _P, _P, _I, _I, _I, _I, _P],
+            "causal_mac_c128": [_P, _P, _P, _I, _I, _I, _I, _P],
             "fused_conv_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
             "frame_conv_mac_tile": [_I],
+            "frame_conv_mac_tile_c128": [_I],
         }),
     "error_feedback_quantize": Library(
         "error_feedback_quantize",
@@ -78,22 +85,20 @@ def _nvcc() -> str:
                        "machine with the card, with the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    lib = LIBRARIES[name]
+def library_path(lib: Library) -> Path:
     h = hashlib.sha256(lib.source.read_bytes())
     h.update(" ".join(lib.flags).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{lib.name}_{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    """Start nvcc for `name` unless built; returns (path, process or None,
+def _start(lib: Library):
+    """Start nvcc for `lib` unless built; returns (path, process or None,
     temporary output)."""
-    path = library_path(name)
+    path = library_path(lib)
     if path.exists():
         return path, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    lib = LIBRARIES[name]
     cmd = [_nvcc(), *lib.flags, "-o", str(tmp), str(lib.source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
@@ -116,15 +121,27 @@ def build(name: str) -> tuple[Path, str]:
     """Compile library `name` if this source version is not built yet.
     Returns (library path, nvcc's stderr: the ptxas register and shared
     memory report, empty when the library was already there)."""
-    path, proc, tmp = _start(name)
+    path, proc, tmp = _start(LIBRARIES[name])
     return path, _finish(path, proc, tmp)
 
 
-def build_all() -> dict:
-    """Build every library, one nvcc per source, all started together.
-    Returns {name: (path, nvcc stderr)}."""
-    started = {name: _start(name) for name in LIBRARIES}
+def build_all(libs=None) -> dict:
+    """Build every library of `libs` ({name: Library}, by default
+    LIBRARIES), one nvcc per source, all started together.  Returns
+    {name: (path, nvcc stderr)}."""
+    libs = LIBRARIES if libs is None else libs
+    started = {name: _start(lib) for name, lib in libs.items()}
     return {name: (s[0], _finish(*s)) for name, s in started.items()}
+
+
+def bind(lib: Library, path: Path) -> ctypes.CDLL:
+    """The built library at `path` with `lib`'s signatures set."""
+    dll = ctypes.CDLL(str(path))
+    for fn_name, argtypes in lib.signatures.items():
+        fn = getattr(dll, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return dll
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -132,10 +149,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         path, _ = build(name)
-        lib = ctypes.CDLL(str(path))
-        for fn_name, argtypes in LIBRARIES[name].signatures.items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        lib = bind(LIBRARIES[name], path)
         _loaded[name] = lib
     return lib

@@ -1,15 +1,19 @@
-"""The three overlap-save frame kernels of the folded convolution chain
-(counterpart of convopeq_tpu/ops/pallas_gemm_fft.py).
+"""The overlap-save frame kernels of the partitioned convolution
+(counterpart of convopeq_tpu/ops/pallas_gemm_fft.py and, in f64, of
+convopeq_tpu/ops/pallas_dd_fft.py).
 
 Each kernel has a wrapper, a plain PyTorch version and a launch count:
 
 - A CPU tensor takes the plain version (torch.fft and elementwise ops,
   f32 or f64).
-- A CUDA tensor takes the hand-written kernel of csrc/frame_conv.cu, or
-  raises ValueError for a dtype or shape the kernel does not take (f64
-  on the card included: the f64 tier is not ported yet).
+- A CUDA tensor takes the hand-written kernel of csrc/frame_conv.cu for
+  its dtype: f32 / complex64, or native f64 / complex128 (the TPU's
+  double-f32 "dd" tier).  Any other dtype, a mixed call (complex64 X with
+  complex128 H) or a shape the kernel does not take raises ValueError.
 - `launch_counts[name]` grows by one at each kernel launch, and nowhere
-  else, so a run can show that it went through the kernels.
+  else, so a run can show that it went through the kernels; each dtype
+  has its own count (`frames_rfft` / `frames_rfft_f64`, `causal_mac` /
+  `causal_mac_c128`, `irfft_valid` / `irfft_valid_f64`).
 
 Spectra are in natural bin order, (C, K, p+1) complex, where the JAX
 kernels used the (k2, k1) stage grid: grid index k is bin k for k <= p.
@@ -18,7 +22,8 @@ What bounds each kernel at the headline shape (C = 64 channel-streams,
 K = 88 frames, p = 32768, P = 33; design in csrc/frame_conv.cu; times
 measured on an H100 80GB HBM3 at 700 W):
 
-frames_rfft — replaces `_fwd_frames_kernel` (`rfft_frames_two_stage_pallas`).
+frames_rfft — replaces `_fwd_frames_kernel` (`rfft_frames_two_stage_pallas`)
+    and, in f64, `_fwd_dd_kernel` (`pallas_dd_fft.py`).
     Per frame: 128 KB of samples in, about 1 MB of complex scratch out and
     back in (two passes of the four-step FFT), 256 KB of spectrum out,
     against ~5 N log2 N = 5.2 MFLOP (N = 65536): about 4 FLOP per byte,
@@ -29,15 +34,25 @@ frames_rfft — replaces `_fwd_frames_kernel` (`rfft_frames_two_stage_pallas`).
     [prev | cur] frame out of memory (it is read from the frames directly)
     and writes only bins k <= p; packing the real input into a half-length
     complex FFT would halve the work and the scratch, and is left for
-    later.
-causal_mac — replaces `_mac_kernel` (`causal_mac_grid_pallas`).
+    later.  In f64 every byte count doubles and the operations stay: ~2
+    FLOP a byte against an f64 ridge of ~10 (34 TFLOP/s over 3.35 TB/s),
+    so it is bound by bytes too.
+osa_rfft — replaces `_fwd_kernel` (`rfft_two_stage_pallas`): the same
+    transform read from materialized (C, K, 2p) overlap-save frames, f32
+    (pass 1 of frames_rfft with its load switched at compile time).  It
+    reads 256 KB of frame a frame instead of 128 KB.
+causal_mac — replaces `_mac_kernel` (`causal_mac_grid_pallas`) and, in
+    c128, `_dd_mac_kernel`.
     Per bin and frame: one 8-byte X read and one Y write against P complex
     multiply-adds (8P FLOP): ~16 FLOP per byte of device memory at P = 33.
     Each bin keeps its last P frame values and its P partition values in
     shared memory, so X is read from device memory once; the loop is then
     bound by shared-memory reads (16 B per multiply-add, ~24 TB/s
-    measured, near the card's shared-memory bandwidth).
-irfft_valid — replaces `_inv_kernel` (`irfft_valid_two_stage_pallas`).
+    measured, near the card's shared-memory bandwidth).  In c128 a value
+    is 16 B, so a multiply-add reads 32 B of shared memory and a block
+    holds half the bins for the same P (`frame_conv_mac_tile_c128`).
+irfft_valid — replaces `_inv_kernel` (`irfft_valid_two_stage_pallas`)
+    and, in f64, `_inv_dd_kernel`.
     Mirror of frames_rfft: 256 KB of spectrum in, the scratch round trip,
     128 KB out per frame; bound the same way.  Only the valid second half
     of each frame is computed in the second pass and written.
@@ -48,7 +63,36 @@ import torch
 
 from ._build import load
 
-launch_counts = {"frames_rfft": 0, "causal_mac": 0, "irfft_valid": 0}
+launch_counts = {"frames_rfft": 0, "causal_mac": 0, "irfft_valid": 0,
+                 "frames_rfft_f64": 0, "causal_mac_c128": 0,
+                 "irfft_valid_f64": 0, "osa_rfft": 0}
+F32_KERNELS = ("frames_rfft", "causal_mac", "irfft_valid")
+F64_KERNELS = ("frames_rfft_f64", "causal_mac_c128", "irfft_valid_f64")
+
+# the library entry of each wrapper by the dtype of its first input
+_ENTRIES = {
+    "frames_rfft": {torch.float32: "frames_rfft_f32",
+                    torch.float64: "frames_rfft_f64"},
+    "osa_rfft": {torch.float32: "osa_rfft_f32"},
+    "causal_mac": {torch.complex64: "causal_mac_c64",
+                   torch.complex128: "causal_mac_c128"},
+    "irfft_valid": {torch.complex64: "irfft_valid_f32",
+                    torch.complex128: "irfft_valid_f64"},
+}
+# the spectra's dtype of each signal dtype the kernels take
+COMPLEX_OF = {torch.float32: torch.complex64,
+              torch.float64: torch.complex128}
+_REAL_OF = {c: r for r, c in COMPLEX_OF.items()}
+
+
+def kernel_entry(op: str, dtype) -> str:
+    """The csrc/frame_conv.cu entry that wrapper `op` launches for a CUDA
+    input of `dtype`; ValueError for a dtype it has no kernel for."""
+    entry = _ENTRIES[op].get(dtype)
+    if entry is None:
+        raise ValueError(f"{op}: the CUDA kernels take "
+                         f"{' or '.join(map(str, _ENTRIES[op]))}, got {dtype}")
+    return entry
 
 # what csrc/frame_conv.cu supports: power-of-two partitions in this range
 MIN_PART, MAX_PART = 512, 65536
@@ -91,12 +135,18 @@ def irfft_valid_plain(Y):
     return torch.fft.irfft(Y, n=2 * p, dim=-1)[..., p:]
 
 
+def osa_rfft_plain(osa):
+    """rfft of materialized overlap-save frames: (..., 2p) real ->
+    (..., p+1) complex."""
+    return torch.fft.rfft(osa, dim=-1)
+
+
 # ------------------------------------------------------------------ wrappers
 
-def _check_cuda(t, name, dtype, ndim):
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: the CUDA kernel takes {dtype}, got "
-                         f"{t.dtype}")
+def _check_cuda(t, name, dtypes, ndim):
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: the CUDA kernel takes "
+                         f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got "
                          f"{tuple(t.shape)}")
@@ -119,32 +169,58 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name}: kernel launch failed (code {rc})")
 
 
-def frames_rfft(frames):
-    """frames (C, K, p) f32 -> X (C, K, p+1) complex64."""
-    if frames.device.type == "cpu":
-        return frames_rfft_plain(frames)
-    _check_cuda(frames, "frames_rfft", torch.float32, 3)
-    C, K, p = frames.shape
+def _launched(entry):
+    """Count a launch of library entry `entry`: the f32 / complex64 kernels
+    keep their unsuffixed names (frames_rfft_f32 -> frames_rfft)."""
+    launch_counts[entry[:-4] if entry[-4:] in ("_f32", "_c64")
+                  else entry] += 1
+
+
+def _forward(inp, name, p):
+    """Launch forward wrapper `name`'s entry on inp (C, K, *) -> X
+    (C, K, p+1)."""
+    entry = kernel_entry(name, inp.dtype)
+    _check_cuda(inp, name, tuple(_ENTRIES[name]), 3)
+    C, K = inp.shape[:2]
     _check_part(p)
+    cdtype = COMPLEX_OF[inp.dtype]
     lib = load("frame_conv")
-    X = torch.empty((C, K, p + 1), dtype=torch.complex64,
-                    device=frames.device)
-    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex64,
-                          device=frames.device)
-    with torch.cuda.device(frames.device):
-        rc = lib.frames_rfft_f32(frames.data_ptr(), scratch.data_ptr(),
-                                 X.data_ptr(), C, K, p, _stream(frames))
-    _raise_on(rc, "frames_rfft")
-    launch_counts["frames_rfft"] += 1
+    X = torch.empty((C, K, p + 1), dtype=cdtype, device=inp.device)
+    scratch = torch.empty((C * K * 2 * p,), dtype=cdtype, device=inp.device)
+    with torch.cuda.device(inp.device):
+        rc = getattr(lib, entry)(inp.data_ptr(), scratch.data_ptr(),
+                                 X.data_ptr(), C, K, p, _stream(inp))
+    _raise_on(rc, name)
+    _launched(entry)
     return X
 
 
+def frames_rfft(frames):
+    """frames (C, K, p) f32 or f64 -> X (C, K, p+1) complex64 or
+    complex128."""
+    if frames.device.type == "cpu":
+        return frames_rfft_plain(frames)
+    return _forward(frames, "frames_rfft", frames.shape[-1])
+
+
+def osa_rfft(osa):
+    """osa (C, K, 2p) f32 materialized overlap-save frames -> X (C, K, p+1)
+    complex64."""
+    if osa.device.type == "cpu":
+        return osa_rfft_plain(osa)
+    if osa.shape[-1] % 2:
+        raise ValueError(f"osa_rfft: frame length {osa.shape[-1]} is odd")
+    return _forward(osa, "osa_rfft", osa.shape[-1] // 2)
+
+
 def causal_mac(X, H):
-    """X (C, K, B) complex64, H (P, B) complex64 -> Y (C, K, B)."""
+    """X (C, K, B), H (P, B), both complex64 or both complex128 -> Y
+    (C, K, B)."""
     if X.device.type == "cpu":
         return causal_mac_plain(X, H)
-    _check_cuda(X, "causal_mac X", torch.complex64, 3)
-    _check_cuda(H, "causal_mac H", torch.complex64, 2)
+    entry = kernel_entry("causal_mac", X.dtype)
+    _check_cuda(X, "causal_mac X", (X.dtype,), 3)
+    _check_cuda(H, "causal_mac H", (X.dtype,), 2)
     if H.device != X.device:
         raise ValueError("causal_mac: X and H on different devices")
     C, K, B = X.shape
@@ -152,33 +228,35 @@ def causal_mac(X, H):
     if H.shape[1] != B:
         raise ValueError(f"causal_mac: H has {H.shape[1]} bins, X has {B}")
     lib = load("frame_conv")
-    if lib.frame_conv_mac_tile(P) == 0:
+    tile = (lib.frame_conv_mac_tile if X.dtype == torch.complex64
+            else lib.frame_conv_mac_tile_c128)
+    if tile(P) == 0:
         raise ValueError(f"causal_mac: P={P} partitions exceed the "
-                         "kernel's shared memory")
+                         f"{X.dtype} kernel's shared memory")
     Y = torch.empty_like(X)
     with torch.cuda.device(X.device):
-        rc = lib.causal_mac_c64(X.data_ptr(), H.data_ptr(), Y.data_ptr(),
-                                C, K, B, P, _stream(X))
+        rc = getattr(lib, entry)(X.data_ptr(), H.data_ptr(), Y.data_ptr(),
+                                 C, K, B, P, _stream(X))
     _raise_on(rc, "causal_mac")
-    launch_counts["causal_mac"] += 1
+    _launched(entry)
     return Y
 
 
 def irfft_valid(Y):
-    """Y (C, K, p+1) complex64 -> y (C, K, p) f32."""
+    """Y (C, K, p+1) complex64 or complex128 -> y (C, K, p) f32 or f64."""
     if Y.device.type == "cpu":
         return irfft_valid_plain(Y)
-    _check_cuda(Y, "irfft_valid", torch.complex64, 3)
+    entry = kernel_entry("irfft_valid", Y.dtype)
+    _check_cuda(Y, "irfft_valid", (Y.dtype,), 3)
     C, K, bins = Y.shape
     p = bins - 1
     _check_part(p)
     lib = load("frame_conv")
-    y = torch.empty((C, K, p), dtype=torch.float32, device=Y.device)
-    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex64,
-                          device=Y.device)
+    y = torch.empty((C, K, p), dtype=_REAL_OF[Y.dtype], device=Y.device)
+    scratch = torch.empty((C * K * 2 * p,), dtype=Y.dtype, device=Y.device)
     with torch.cuda.device(Y.device):
-        rc = lib.irfft_valid_f32(Y.data_ptr(), scratch.data_ptr(),
+        rc = getattr(lib, entry)(Y.data_ptr(), scratch.data_ptr(),
                                  y.data_ptr(), C, K, p, _stream(Y))
     _raise_on(rc, "irfft_valid")
-    launch_counts["irfft_valid"] += 1
+    _launched(entry)
     return y

@@ -70,8 +70,8 @@ def fused_conv(frames, H):
     """frames (C, K, p) f32, H (P, p+1) complex64 -> y (C, K, p) f32."""
     if frames.device.type == "cpu":
         return fused_conv_plain(frames, H)
-    _check_cuda(frames, "fused_conv frames", torch.float32, 3)
-    _check_cuda(H, "fused_conv H", torch.complex64, 2)
+    _check_cuda(frames, "fused_conv frames", (torch.float32,), 3)
+    _check_cuda(H, "fused_conv H", (torch.complex64,), 2)
     if H.device != frames.device:
         raise ValueError("fused_conv: frames and H on different devices")
     C, K, p = frames.shape

@@ -8,11 +8,20 @@ computed for all frames at once: one forward transform of every frame,
 the MAC over the frame axis, one inverse transform of every frame.
 
 The three steps are the frame kernels of `frame_conv_kernels`: on a CUDA
-f32 tensor the hand-written kernels, on a CPU tensor their plain
-versions.  A layer of P <= 8 partitions goes to the fused kernel of
-`fused_conv_kernels` instead, chosen from the shape before the launch
-(the JAX package's `fused_conv_supported` gate,
-convopeq_tpu/ops/partitioned_conv.py:392-401).
+tensor the hand-written kernels of its dtype, on a CPU tensor their
+plain versions.  Routing is by dtype, then shape, before the launch:
+
+- f32 signal, complex64 spectra: a layer of P <= 8 partitions goes to
+  the fused kernel of `fused_conv_kernels` (the JAX package's
+  `fused_conv_supported` gate, convopeq_tpu/ops/partitioned_conv.py:
+  392-401), any other layer to the three f32 frame kernels.
+- f64 signal, complex128 spectra (the <=1e-9 tier): every layer, of any
+  P, goes to the three f64 frame kernels, as the JAX dd route sends every
+  split-spectra layer to its three dd kernels
+  (convopeq_tpu/ops/partitioned_conv.py:317-335).  There is no fused f64
+  kernel.
+- Any other pairing (an f64 signal with complex64 spectra, or the
+  reverse) raises: nothing is cast silently.
 """
 from __future__ import annotations
 
@@ -20,8 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .frame_conv_kernels import (causal_mac, causal_mac_plain, frames_rfft,
-                                 frames_rfft_plain, irfft_valid,
+from .frame_conv_kernels import (COMPLEX_OF, causal_mac, causal_mac_plain,
+                                 frames_rfft, frames_rfft_plain, irfft_valid,
                                  irfft_valid_plain)
 from .fused_conv_kernels import fused_conv, fused_conv_supported
 
@@ -57,10 +66,12 @@ def uniform_partitioned_conv(x, Hparts, part_size: int, frame_mac="auto"):
 
     x: (..., N) real signal, time last.
     Hparts: (P, part_size+1) complex partition spectra from
-      `partition_spectra`, on x's device.
+      `partition_spectra`, on x's device: complex64 for an f32 x,
+      complex128 for an f64 x.
     frame_mac: "auto" runs the kernels' wrappers (the CUDA kernels for a
-      CUDA tensor, the plain versions for a CPU tensor): the fused
-      kernel for P <= 8 partitions, else the three frame kernels;
+      CUDA tensor, the plain versions for a CPU tensor): for f32 the
+      fused kernel for P <= 8 partitions, else the three frame kernels;
+      for f64 the three f64 frame kernels;
       "plain" runs the plain frame steps on any device (the f64
       reference on the card).
 
@@ -71,6 +82,9 @@ def uniform_partitioned_conv(x, Hparts, part_size: int, frame_mac="auto"):
         raise ValueError(f"frame_mac: {frame_mac!r}")
     if Hparts.device != x.device:
         raise ValueError(f"spectra on {Hparts.device}, signal on {x.device}")
+    if COMPLEX_OF.get(x.dtype) != Hparts.dtype:
+        raise ValueError(f"signal {x.dtype} with spectra {Hparts.dtype}: "
+                         "take f32 with complex64 or f64 with complex128")
     fwd, mac, inv = _FRAME_STEPS[frame_mac]
     n = x.shape[-1]
     p = part_size
@@ -78,7 +92,8 @@ def uniform_partitioned_conv(x, Hparts, part_size: int, frame_mac="auto"):
     pad = k * p - n
     xp = F.pad(x, (0, pad)) if pad else x
     frames = xp.reshape((-1, k, p)).contiguous()
-    if frame_mac == "auto" and fused_conv_supported(p, Hparts.shape[0]):
+    if (frame_mac == "auto" and frames.dtype == torch.float32
+            and fused_conv_supported(p, Hparts.shape[0])):
         y = fused_conv(frames, Hparts)
     else:
         y = inv(mac(fwd(frames), Hparts))

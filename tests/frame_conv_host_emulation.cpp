@@ -23,7 +23,13 @@
 struct float2 {
   float x, y;
 };
+struct alignas(16) double2 {
+  double x, y;
+};
 static inline float2 make_float2(float x, float y) { return float2{x, y}; }
+static inline double2 make_double2(double x, double y) {
+  return double2{x, y};
+}
 
 struct dim3 {
   unsigned x, y, z;
@@ -31,7 +37,7 @@ struct dim3 {
 };
 
 static dim3 threadIdx(0, 0, 0), blockIdx(0, 0, 0), blockDim(1, 1, 1);
-static float2* emu_smem = nullptr;
+static void* emu_smem = nullptr;
 
 namespace emu {
 constexpr size_t kStack = 256 * 1024;
@@ -87,6 +93,11 @@ static inline void sincospif(float x, float* s, float* c) {
   *s = (float)std::sin(a);
   *c = (float)std::cos(a);
 }
+static inline void sincospi(double x, double* s, double* c) {
+  const long double a = (long double)x * 3.141592653589793238462643383279L;
+  *s = (double)std::sin(a);
+  *c = (double)std::cos(a);
+}
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -105,7 +116,7 @@ struct Launch {
     const dim3 g = grid, b = block;
     const size_t bytes = smem;
     return [g, b, bytes, kernel](auto... args) {
-      std::vector<float2> buf(bytes / sizeof(float2) + 1);
+      std::vector<double2> buf(bytes / sizeof(double2) + 1);
       emu_smem = buf.data();
       blockDim = b;
       const std::function<void()> fn = [&]() { kernel(args...); };
@@ -122,6 +133,7 @@ struct Launch {
 
 #define FC_LAUNCH(kernel, grid, block, smem, stream) \
   emu::Launch{(grid), (block), (smem)}(kernel)
-#define FC_DYNAMIC_SMEM(name) float2* name = emu_smem
+#define FC_DYNAMIC_SMEM(type, name) \
+  type* name = reinterpret_cast<type*>(emu_smem)
 
 #include "../convopeq_tpu_torch/csrc/frame_conv.cu"

@@ -6,7 +6,9 @@
 - uniform_partitioned_conv, torch f64 against JAX f64.
 - The CUDA source itself, compiled for the host by
   tests/frame_conv_host_emulation.cpp (every thread of a block a
-  coroutine), against the plain versions.
+  coroutine), against the plain versions: the f32 kernels at 2e-5 x max,
+  the f64 kernels at 1e-12 x max against numpy f64, and osa_rfft as the
+  f32 forward.
 """
 import ctypes
 import shutil
@@ -117,8 +119,18 @@ def test_wrappers_take_plain_versions_on_cpu():
     assert torch.equal(X, fk.frames_rfft_plain(fr))
     assert torch.equal(Y, fk.causal_mac_plain(X, H))
     assert torch.equal(y, fk.irfft_valid_plain(Y))
-    assert fk.launch_counts == {"frames_rfft": 0, "causal_mac": 0,
-                                "irfft_valid": 0}
+    fr64, H128 = fr.double(), H.to(torch.complex128)
+    X64 = fk.frames_rfft(fr64)
+    assert X64.dtype == torch.complex128
+    assert torch.equal(fk.causal_mac(X64, H128),
+                       fk.causal_mac_plain(X64, H128))
+    assert fk.irfft_valid(X64).dtype == torch.float64
+    osa = torch.cat([torch.zeros_like(fr[:, :1]), fr[:, :-1]], dim=1)
+    osa = torch.cat([osa, fr], dim=-1)
+    assert torch.equal(fk.osa_rfft(osa), fk.osa_rfft_plain(osa))
+    assert set(fk.launch_counts) == {*fk.F32_KERNELS, *fk.F64_KERNELS,
+                                     "osa_rfft"}
+    assert all(v == 0 for v in fk.launch_counts.values())
 
 
 def _rel_rms(a, b):
@@ -158,10 +170,13 @@ def emulated(tmp_path_factory):
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
     P_, I_ = ctypes.c_void_p, ctypes.c_int
-    lib.frames_rfft_f32.argtypes = [P_, P_, P_, I_, I_, I_, P_]
-    lib.irfft_valid_f32.argtypes = [P_, P_, P_, I_, I_, I_, P_]
-    lib.causal_mac_c64.argtypes = [P_, P_, P_, I_, I_, I_, I_, P_]
+    for name in ("frames_rfft_f32", "frames_rfft_f64", "osa_rfft_f32",
+                 "irfft_valid_f32", "irfft_valid_f64"):
+        getattr(lib, name).argtypes = [P_, P_, P_, I_, I_, I_, P_]
+    for name in ("causal_mac_c64", "causal_mac_c128"):
+        getattr(lib, name).argtypes = [P_, P_, P_, I_, I_, I_, I_, P_]
     lib.frame_conv_mac_tile.argtypes = [I_]
+    lib.frame_conv_mac_tile_c128.argtypes = [I_]
     return lib
 
 
@@ -201,6 +216,83 @@ def test_cuda_source_rejects_unsupported_shapes_emulated(emulated):
     assert emulated.frame_conv_mac_tile(33) == 128
     assert emulated.frame_conv_mac_tile(454) == 32
     assert emulated.frame_conv_mac_tile(455) == 0
+    # complex128: 16 B a value, so a block holds half the bins for a P
+    assert emulated.frame_conv_mac_tile_c128(33) == 128
+    assert emulated.frame_conv_mac_tile_c128(64) == 64
+    assert emulated.frame_conv_mac_tile_c128(227) == 32
+    assert emulated.frame_conv_mac_tile_c128(228) == 0
     for p in (256, 1000, 131072):
-        assert emulated.frames_rfft_f32(None, None, None, 1, 1, p, None) == -1
-        assert emulated.irfft_valid_f32(None, None, None, 1, 1, p, None) == -1
+        for name in ("frames_rfft_f32", "frames_rfft_f64", "osa_rfft_f32",
+                     "irfft_valid_f32", "irfft_valid_f64"):
+            assert getattr(emulated, name)(None, None, None, 1, 1, p,
+                                           None) == -1
+    assert emulated.causal_mac_c128(None, None, None, 1, 1, 1, 228,
+                                    None) == -1
+
+
+def _osa_np(fr):
+    prev = np.concatenate([np.zeros_like(fr[:, :1]), fr[:, :-1]], axis=1)
+    return np.concatenate([prev, fr], axis=-1)
+
+
+@pytest.mark.parametrize("p,C,K", [(512, 2, 3), (2048, 1, 5), (65536, 1, 2)])
+def test_cuda_source_f64_transforms_emulated(emulated, p, C, K):
+    rng = np.random.default_rng(p + 5 * C)
+    fr = _frames(rng, C, K, p, np.float64)
+    X = torch.empty((C, K, p + 1), dtype=torch.complex128)
+    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex128)
+    frt = torch.from_numpy(fr)
+    assert emulated.frames_rfft_f64(frt.data_ptr(), scratch.data_ptr(),
+                                    X.data_ptr(), C, K, p, None) == 0
+    ref = np.fft.rfft(_osa_np(fr), axis=-1)
+    np.testing.assert_allclose(X.numpy(), ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())
+    Y = _cplx(rng, (C, K, p + 1), np.complex128)
+    y = torch.empty((C, K, p), dtype=torch.float64)
+    Yt = torch.from_numpy(Y)
+    assert emulated.irfft_valid_f64(Yt.data_ptr(), scratch.data_ptr(),
+                                    y.data_ptr(), C, K, p, None) == 0
+    Yz = Y.copy()
+    Yz[..., 0] = Yz[..., 0].real
+    Yz[..., p] = Yz[..., p].real
+    ref_y = np.fft.irfft(Yz, n=2 * p, axis=-1)[..., p:]
+    np.testing.assert_allclose(y.numpy(), ref_y, rtol=0,
+                               atol=1e-12 * np.abs(ref_y).max())
+
+
+@pytest.mark.parametrize("C,K,P,B", [(2, 11, 4, 513), (1, 9, 64, 300),
+                                     (1, 3, 200, 77)])
+def test_cuda_source_f64_mac_emulated(emulated, C, K, P, B):
+    rng = np.random.default_rng(K * P + 1)
+    X = _cplx(rng, (C, K, B), np.complex128)
+    H = _cplx(rng, (P, B), np.complex128)
+    Xt, Ht = torch.from_numpy(X), torch.from_numpy(H)
+    Y = torch.empty_like(Xt)
+    assert emulated.causal_mac_c128(Xt.data_ptr(), Ht.data_ptr(),
+                                    Y.data_ptr(), C, K, B, P, None) == 0
+    ref = np.zeros_like(X)
+    for f in range(K):
+        for j in range(min(P, f + 1)):
+            ref[:, f] += X[:, f - j] * H[j]
+    np.testing.assert_allclose(Y.numpy(), ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("p,C,K", [(512, 2, 3), (4096, 1, 3)])
+def test_cuda_source_osa_rfft_emulated(emulated, p, C, K):
+    """osa_rfft of materialized frames: the f32 forward's transform, so
+    equal to frames_rfft_f32 on the frames they were built from."""
+    rng = np.random.default_rng(p + K)
+    fr = _frames(rng, C, K, p)
+    osa = torch.from_numpy(_osa_np(fr))
+    X = torch.empty((C, K, p + 1), dtype=torch.complex64)
+    Xf = torch.empty_like(X)
+    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex64)
+    assert emulated.osa_rfft_f32(osa.data_ptr(), scratch.data_ptr(),
+                                 X.data_ptr(), C, K, p, None) == 0
+    ref = fk.osa_rfft_plain(osa.double())
+    assert float((X - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    frt = torch.from_numpy(fr)
+    assert emulated.frames_rfft_f32(frt.data_ptr(), scratch.data_ptr(),
+                                    Xf.data_ptr(), C, K, p, None) == 0
+    assert torch.equal(X, Xf)

@@ -98,11 +98,19 @@ def test_partitioned_conv_routes_small_layers_to_fused(monkeypatch, P,
     rng = np.random.default_rng(P)
     x = torch.from_numpy(rng.normal(size=(2, 3, 3000)))
     h = rng.normal(size=P * 512 - 100)
-    H = t_pc.partition_spectra(h, 512, dtype=torch.float64, device="cpu")
-    y = t_pc.uniform_partitioned_conv(x, H, 512)
-    assert calls == ([(6, 6, 512)] if expect_fused else [])
     ref = np.stack([np.convolve(r, h)[:3000]
                     for r in x.numpy().reshape(-1, 3000)]).reshape(2, 3, -1)
+    # f32: P <= 8 layers take the fused kernel
+    H32 = t_pc.partition_spectra(h, 512, dtype=torch.float32, device="cpu")
+    y32 = t_pc.uniform_partitioned_conv(x.float(), H32, 512)
+    assert calls == ([(6, 6, 512)] if expect_fused else [])
+    np.testing.assert_allclose(y32.numpy(), ref, rtol=0,
+                               atol=2e-5 * np.abs(ref).max())
+    # f64: every layer takes the three frame kernels (no fused f64 kernel)
+    calls.clear()
+    H = t_pc.partition_spectra(h, 512, dtype=torch.float64, device="cpu")
+    y = t_pc.uniform_partitioned_conv(x, H, 512)
+    assert calls == []
     np.testing.assert_allclose(y.numpy(), ref, rtol=0,
                                atol=1e-12 * np.abs(ref).max())
     calls.clear()
