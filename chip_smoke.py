@@ -10,15 +10,18 @@
    the headline shapes (C = 8 channel-streams, K = 88 frames, p = 32768,
    P = 33, f32); max |diff| <= 2e-5 x max |plain| (x max(1, .) for the
    inverse), and the kernel's, the plain version's and the library call's
-   times (CUDA events, median of 7 after warm-up).
+   times (CUDA events, median of 7 after warm-up); then the device time
+   of each pass of frames_rfft and irfft_valid in one call
+   (torch.profiler, by kernel name), each beside the bytes it reads and
+   writes and the rate that makes.
 3b. The three f64 frame kernels against their plain f64 versions at the
    same shapes: max |diff| <= 1e-12 x max |plain|; times as in 3 (library:
-   cuFFT D2Z of the built frames, Z2D of the full frame) and the bound at
-   the card's f64 rate.
+   cuFFT D2Z of the built frames, Z2D of the full frame), the bound at
+   the card's f64 rate, and the passes as in 3.
 3c. The self-check path (bench.py's, which reaches the TPU's
    `_fwd_kernel`): `osa_rfft` of materialized (C, K, 2p) overlap-save
-   frames, then `irfft_valid`; `osa_rfft` against torch.fft.rfft and
-   against `frames_rfft` of the same frames, 2e-5 x max.
+   frames, then `irfft_valid`; `osa_rfft` against torch.fft.rfft, 2e-5
+   x max, and equal to `frames_rfft` of the same frames bit for bit.
 4. The folded headline chain at the 1M-tap IR: (a) 4 streams x 10 s in
    f32 through the kernels against the plain path in f64 on the card,
    relative RMS <= 2e-5, finite, every frame kernel launched; (b) 64
@@ -258,7 +261,47 @@ def phase_kernels(card, dtype=torch.float32):
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": library_ms}
+    rows[names[0]]["passes"] = pass_times(
+        card, lambda: fk.frames_rfft(frames), frames)
+    rows[names[2]]["passes"] = pass_times(
+        card, lambda: fk.irfft_valid(Y_plain), frames)
     return rows
+
+
+# real values of the frames' type that each transform pass reads and
+# writes a frame of p samples: the packed forward reads p sample pairs and
+# writes p complex values (pass 1), then reads them and writes p+1 bins
+# (pass 2); the full-length inverse reads 2p complex values (the upper
+# half's conjugates read again) and writes 2p (pass 1), then reads 2p and
+# writes p samples (pass 2)
+PASS_VALUES = {"fwd_packed_pass1": lambda p: 2 * p + 2 * p,
+               "fwd_packed_pass2": lambda p: 2 * p + 2 * (p + 1),
+               "inv_pass1": lambda p: 4 * p + 4 * p,
+               "inv_pass2": lambda p: 4 * p + p}
+
+
+def pass_times(card, fn, frames):
+    """Device time of each pass of one call fn() (torch.profiler, by
+    kernel name), with the bytes the pass reads and writes and its rate;
+    printed on one line and returned as {pass: {ms, bytes, GB/s}}."""
+    frames_n = frames.shape[0] * frames.shape[1]
+    p, item = frames.shape[-1], frames.element_size()
+    _wall, prof = headline.profile_call(fn)
+    out, parts = {}, []
+    for name, values in PASS_VALUES.items():
+        hits = [r for r in prof if name in r[0]]
+        if not hits:
+            continue
+        ms = sum(r[1] for r in hits)
+        nbytes = frames_n * values(p) * item
+        out[name] = {"ms": ms, "bytes": nbytes, "GB_s": nbytes / ms / 1e6}
+        parts.append(f"{name} {ms:.4f} ms, {nbytes / 1e6:.2f} MB, "
+                     f"{nbytes / ms / 1e6:.0f} GB/s")
+    print(f"passes of one call ({str(frames.dtype)[6:]}, C={frames.shape[0]}"
+          f" K={frames.shape[1]} p={p}; torch.profiler device time, bytes as "
+          f"each pass reads and writes them): "
+          f"{'; '.join(parts) or 'no pass traced'} [{card}]")
+    return out
 
 
 def phase_self_check(card):
@@ -278,7 +321,9 @@ def phase_self_check(card):
     ref = fk.osa_rfft_plain(osa)
     scale = float(ref.abs().max())
     err = float((X - ref).abs().max())
-    err_frames = float((X - fk.frames_rfft(frames)).abs().max())
+    X_frames = fk.frames_rfft(frames)
+    err_frames = float((X - X_frames).abs().max())
+    same = bool(torch.equal(X, X_frames))
     ms = time_ms(lambda: fk.osa_rfft(osa))
     plain_ms = time_ms(lambda: fk.osa_rfft_plain(osa))
     library_ms = time_ms(lambda: torch.fft.rfft(osa, dim=-1))
@@ -287,13 +332,14 @@ def phase_self_check(card):
                                C * K * 2.5 * n_fft * math.log2(n_fft))
     print(f"self-check path (osa_rfft -> irfft_valid), sum {total:.6e}: "
           f"osa_rfft max|diff| {err:.3e} vs torch.fft.rfft, {err_frames:.3e} "
-          f"vs frames_rfft (tol {2e-5 * scale:.3e})  kernel {ms:.3f} ms  "
+          f"vs frames_rfft (tol {2e-5 * scale:.3e}; bit for bit {same})  "
+          f"kernel {ms:.3f} ms  "
           f"plain {plain_ms:.3f} ms  library {library_ms:.3f} ms  bound "
           f"{bound_ms:.4f} ms ({bound_by}), launches {launches} (C={C} "
           f"K={K} p={P_SIZE}) [{card}]")
-    check(err <= 2e-5 * scale and err_frames <= 2e-5 * scale
+    check(err <= 2e-5 * scale and same
           and bool(torch.isfinite(X).all()) and math.isfinite(total),
-          "osa_rfft agrees with torch.fft.rfft and frames_rfft")
+          "osa_rfft agrees with torch.fft.rfft and equals frames_rfft")
     check(launches["osa_rfft"] == 1 and launches["irfft_valid"] == 1,
           "the self-check path launched osa_rfft and irfft_valid")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

@@ -29,15 +29,23 @@
 // Frame f = c*K + k of channel-stream c.  The overlap-save frame of frame
 // k is [frames[k-1] | frames[k]] (zero prev for k == 0), N = 2p points.
 //
-// Transforms: the four-step FFT with N = N1*N2 (N1 = 2^floor(lg N / 2)).
-// A 2p = 65536-point complex frame is 512 KB, more than a block's 227 KB
+// Transforms: the four-step FFT of M = M1*M2 points (M1 = 2^floor(lg M /
+// 2)).  A 65536-point complex frame is 512 KB, more than a block's 227 KB
 // of shared memory, so each transform runs as two passes through a
-// global complex scratch of N points per frame: pass 1 does the N1- (or
-// N2-) point FFTs of a group of R rows in shared memory and applies the
+// global complex scratch of M points per frame: pass 1 does the M1- (or
+// M2-) point FFTs of a group of R rows in shared memory and applies the
 // twiddle, pass 2 does the other factor's FFTs and writes only what the
 // caller keeps.  Row FFTs are radix-4 Stockham autosort in shared memory
 // with a per-block twiddle table from sincospif / sincospi (exact
 // arguments: every angle is a dyadic multiple of pi).
+//
+// The forward (frames_rfft, osa_rfft) packs the real 2p-point frame into
+// a p-point complex one, z[n] = x[2n] + i x[2n+1], transforms that (M =
+// p) and splits the result into the real frame's bins in its second
+// pass: half the butterflies and half the scratch of a full-length
+// complex FFT.  The inverse and the fused kernel's forward (whose row
+// pass needs all 2p bins of a row) still transform the full M = N = 2p
+// points.
 //
 // Every kernel but fused_rows loops over its work with a stride of
 // blockDim.x, so its result does not depend on the block size it is
@@ -198,13 +206,154 @@ __device__ T* fft_rows(T* a, T* b, const T* tw, int lM, int lR, int ld) {
 }
 
 // ---- forward: frames (C, K, p) real -> X (C, K, p+1) complex ----------
-// osa index n = n1*N2 + n2;  bin k = k1 + N1*k2.
+// The packed half-length transform (replaces the forward of
+// _fwd_frames_kernel, _fwd_kernel and _fwd_dd_kernel).  With x the
+// 2p-point overlap-save frame and z[n] = x[2n] + i x[2n+1], n < p, Z the
+// p-point FFT of z and W = e^{-i pi k / p}, the real frame's bins are
+//   E = (Z[k] + conj Z[p-k]) / 2,  O = (Z[k] - conj Z[p-k]) / (2i),
+//   X[k] = E + W O,  X[p-k] = conj(E - W O)   (Z[p] = Z[0]),
+// so X[0] = Re Z[0] + Im Z[0], X[p] = Re Z[0] - Im Z[0], X[p/2] =
+// conj Z[p/2].  Four-step grid M = p = M1*M2: z index n = n1*M2 + n2,
+// bin k = k1 + M1*k2.  Per f32 frame: 8p B of samples (the first half
+// read again as the next frame's prev), 8p B of scratch out and back in,
+// 8p B of spectrum out, 32p B in all against 48p B for the full-length
+// complex transform.  Each pass moves half of that at a little over half
+// the card's memory rate (PERF.md, the packed forward's findings); the
+// scratch round trip is what a one-pass kernel would drop, where a frame
+// fits a block.
 
-// Pass 1: block (f, group of R columns n2): N1-point FFT over n1 of
-// osa[n1*N2 + n2], times W_N^{n2*k1}, to scratch[f][k1][n2].  The osa
-// frame is [frames[k-1] | frames[k]] read from the frames, or, kOsa, the
-// materialized (…, 2p) frame f of `in`.
+// Pass 1: block (f, group of R columns n2): M1-point FFT over n1 of
+// z[n1*M2 + n2], times W_p^{n2*k1}, to scratch[f][k1][n2] (p values a
+// frame).  Each z value is one aligned float2 / double2 load of a sample
+// pair, from [frames[k-1] | frames[k]] (a pair never straddles the two)
+// or, kOsa, from the materialized (…, 2p) frame f of `in`.
 template <class T, bool kOsa>
+__global__ void fwd_packed_pass1(const typename Cx<T>::R* __restrict__ in,
+                                 T* __restrict__ scratch, int K, int lM1,
+                                 int M2, int lR) {
+  typedef typename Cx<T>::R Real;
+  FC_DYNAMIC_SMEM(T, fc_smem);
+  const int M1 = 1 << lM1, R = 1 << lR, ld = row_stride(M1, lR);
+  const int p = M1 * M2;
+  T* a = fc_smem;
+  T* b = a + R * ld;
+  T* tw = b + R * ld;
+  const int f = blockIdx.x;
+  const int k = f % K;
+  const int n20 = blockIdx.y * R;
+  const Real* cur = in + (size_t)f * (kOsa ? 2 * p : p);
+  fill_twiddles(tw, lM1, Real(-1));
+  for (int e = threadIdx.x; e < R * M1; e += blockDim.x) {
+    const int n1 = e >> lR;
+    const int r = e & (R - 1);
+    const int j = 2 * (n1 * M2 + n20 + r);    // x index of the pair
+    // j < p reads frame k-1 (cur - p), zero before the first frame
+    T v = Cx<T>::make(Real(0), Real(0));
+    if (kOsa) {
+      v = *reinterpret_cast<const T*>(cur + j);
+    } else if (j >= p || k > 0) {
+      v = *reinterpret_cast<const T*>(cur + (j - p));
+    }
+    a[r * ld + n1] = v;
+  }
+  const T* res = fft_rows(a, b, tw, lM1, lR, ld);
+  for (int e = threadIdx.x; e < R * M1; e += blockDim.x) {
+    const int k1 = e >> lR;
+    const int r = e & (R - 1);
+    const int n2 = n20 + r;
+    scratch[((size_t)f * M1 + k1) * M2 + n2] =
+        cmul(res[r * ld + k1], Cx<T>::twiddle(n2 * k1, p, Real(-1)));
+  }
+}
+
+// Pass 2: block (f, group of R rows): M2-point FFTs over n2 of R rows,
+// then the split into X[k] and X[p-k].  Bin k = k1 + M1*k2 has its
+// partner p - k in row M1 - k1, column M2-1-k2 (k1 != 0); rows 0 and
+// M1/2 each pair with themselves (row 0: column (M2 - k2) mod M2).  So
+// block j holds rows k1 = j*R/2 + s in slots s < R/2 and their partners
+// in slots R/2 + s, with row M1/2 in the partner slot of row 0; each
+// pair of slots writes both rows' bins, and every bin 0..p is written
+// once.  A frame's blocks are launched side by side (block index f *
+// M1/R + j): the runs of R/2 bins that neighbouring blocks store then
+// fill whole 32-byte sectors while they are still in L2.  Launched frame
+// by frame instead (the grid of pass 1), the pass took twice as long on
+// an H100 (PERF.md, the packed forward's findings).
+__device__ __forceinline__ int packed_partner(int k1, int M1) {
+  return k1 == 0 ? (M1 >> 1) : M1 - k1;
+}
+
+template <class T>
+__global__ void fwd_packed_pass2(const T* __restrict__ scratch,
+                                 T* __restrict__ X, int lM1, int lM2,
+                                 int lR) {
+  typedef typename Cx<T>::R Real;
+  FC_DYNAMIC_SMEM(T, fc_smem);
+  const int M1 = 1 << lM1, M2 = 1 << lM2, R = 1 << lR;
+  const int ld = row_stride(M2, lR);
+  const int p = M1 * M2;
+  const int hR = R >> 1;
+  const int lnb = lM1 - lR;                    // log2 of blocks a frame
+  T* a = fc_smem;
+  T* b = a + R * ld;
+  T* tw = b + R * ld;
+  const int f = blockIdx.x >> lnb;
+  const int k10 = (blockIdx.x & ((1 << lnb) - 1)) * hR;
+  const T* src = scratch + (size_t)f * p;
+  fill_twiddles(tw, lM2, Real(-1));
+  for (int e = threadIdx.x; e < R * M2; e += blockDim.x) {
+    const int s = e >> lM2;
+    const int n2 = e & (M2 - 1);
+    const int k1 = s < hR ? k10 + s : packed_partner(k10 + s - hR, M1);
+    a[s * ld + n2] = src[(size_t)k1 * M2 + n2];
+  }
+  const T* Z = fft_rows(a, b, tw, lM2, lR, ld);
+  T* Xf = X + (size_t)f * (p + 1);
+  const Real half = Real(0.5);
+  // neighbouring threads take neighbouring rows: runs of R/2 bins
+  for (int e = threadIdx.x; e < hR * M2; e += blockDim.x) {
+    const int s = e & (hR - 1);
+    const int k2 = e >> (lR - 1);
+    const int k1 = k10 + s;
+    const T* row = Z + s * ld;
+    const T* prow = Z + (hR + s) * ld;
+    int k;
+    T zk, zq;                                  // Z[k], Z[p - k]
+    if (k1 != 0) {
+      k = k1 + M1 * k2;
+      zk = row[k2];
+      zq = prow[M2 - 1 - k2];
+    } else if (k2 < (M2 >> 1)) {               // row 0 with itself
+      k = M1 * k2;
+      zk = row[k2];
+      zq = row[(M2 - k2) & (M2 - 1)];
+    } else {                                   // row M1/2 with itself
+      const int c = k2 - (M2 >> 1);
+      k = (M1 >> 1) + M1 * c;
+      zk = prow[c];
+      zq = prow[M2 - 1 - c];
+    }
+    if (k == 0) {
+      Xf[0] = Cx<T>::make(zk.x + zk.y, Real(0));
+      Xf[p] = Cx<T>::make(zk.x - zk.y, Real(0));
+      continue;
+    }
+    const T E = Cx<T>::make(half * (zk.x + zq.x), half * (zk.y - zq.y));
+    const T O = Cx<T>::make(half * (zk.y + zq.y), half * (zq.x - zk.x));
+    const T WO = cmul(Cx<T>::twiddle(k, 2 * p, Real(-1)), O);
+    Xf[k] = cadd(E, WO);
+    Xf[p - k] = Cx<T>::make(E.x - WO.x, WO.y - E.y);
+  }
+  if (k10 == 0 && threadIdx.x == 0) {          // k = p/2: row 0, M2/2
+    const T z = Z[M2 >> 1];
+    Xf[p >> 1] = Cx<T>::make(z.x, -z.y);
+  }
+}
+
+// The full-length forward pass 1 of fused_conv_f32: block (f, group of R
+// columns n2): N1-point FFT over n1 of osa[n1*N2 + n2], N = 2p, times
+// W_N^{n2*k1}, to scratch[f][k1][n2]; the osa frame is [frames[k-1] |
+// frames[k]] read from the frames.
+template <class T>
 __global__ void fwd_pass1(const typename Cx<T>::R* __restrict__ in,
                           T* __restrict__ scratch, int K, int p, int lN1,
                           int N2, int lR) {
@@ -217,14 +366,14 @@ __global__ void fwd_pass1(const typename Cx<T>::R* __restrict__ in,
   const int f = blockIdx.x;
   const int k = f % K;
   const int n20 = blockIdx.y * R;
-  const Real* cur = in + (size_t)f * (kOsa ? 2 * p : p);
+  const Real* cur = in + (size_t)f * p;
   fill_twiddles(tw, lN1, Real(-1));
   for (int e = threadIdx.x; e < R * N1; e += blockDim.x) {
     const int n1 = e >> lR;
     const int r = e & (R - 1);
     const int j = n1 * N2 + n20 + r;          // index in the osa frame
     // j < p reads frame k-1 (cur - p), zero before the first frame
-    const Real v = kOsa ? cur[j] : (j >= p || k > 0) ? cur[j - p] : Real(0);
+    const Real v = (j >= p || k > 0) ? cur[j - p] : Real(0);
     a[r * ld + n1] = Cx<T>::make(v, Real(0));
   }
   const T* res = fft_rows(a, b, tw, lN1, lR, ld);
@@ -235,34 +384,6 @@ __global__ void fwd_pass1(const typename Cx<T>::R* __restrict__ in,
     const int n2 = n20 + r;
     scratch[((size_t)f * N1 + k1) * N2 + n2] =
         cmul(res[r * ld + k1], Cx<T>::twiddle(n2 * k1, N, Real(-1)));
-  }
-}
-
-// Pass 2: block (f, group of R rows k1): N2-point FFT over n2, keeping
-// bins k = k1 + N1*k2 <= p.
-template <class T>
-__global__ void fwd_pass2(const T* __restrict__ scratch, T* __restrict__ X,
-                          int p, int N1, int lN2, int lR) {
-  typedef typename Cx<T>::R Real;
-  FC_DYNAMIC_SMEM(T, fc_smem);
-  const int N2 = 1 << lN2, R = 1 << lR, ld = row_stride(N2, lR);
-  T* a = fc_smem;
-  T* b = a + R * ld;
-  T* tw = b + R * ld;
-  const int f = blockIdx.x;
-  const int k10 = blockIdx.y * R;
-  const T* src = scratch + ((size_t)f * N1 + k10) * N2;
-  fill_twiddles(tw, lN2, Real(-1));
-  for (int e = threadIdx.x; e < R * N2; e += blockDim.x)
-    a[(e >> lN2) * ld + (e & (N2 - 1))] = src[e];
-  const T* res = fft_rows(a, b, tw, lN2, lR, ld);
-  T* Xf = X + (size_t)f * (p + 1);
-  const int nk2 = (N2 >> 1) + 1;
-  for (int e = threadIdx.x; e < R * nk2; e += blockDim.x) {
-    const int k2 = e >> lR;
-    const int r = e & (R - 1);
-    const int kk = k10 + r + N1 * k2;
-    if (kk <= p) Xf[kk] = res[r * ld + k2];
   }
 }
 
@@ -406,8 +527,10 @@ __global__ void causal_mac_kernel(const T* __restrict__ X,
 // p = 8192 is 128 KB, and P of them per channel-stream exceed a block's
 // shared memory, so the work is cut by bin group instead of by frame:
 //
-//   1. fwd_pass1 (as frames_rfft): the N1-point column FFTs of every
-//      frame, times the twiddle, to scratch[f][k1][n2].
+//   1. fwd_pass1, the full-length forward pass 1 (frames_rfft's packed
+//      transform has no row of all 2p bins to hand on): the N1-point
+//      column FFTs of every 2p-point frame, times the twiddle, to
+//      scratch[f][k1][n2].
 //   2. fused_rows: block (c, group of R rows k1) walks the K frames of c
 //      in order.  A row k1 of the forward's second stage yields the bins
 //      k = k1 + N1*k2 for all N2 values k2, over the full 2p-point
@@ -600,26 +723,29 @@ int launch_fused_rows(int C, int N1, int lN2, cudaStream_t st,
                        st, scratch, H, K, p, N1, lN2, lR);
 }
 
-// The forward transform in T: frames (C, K, p) or, kOsa, materialized
-// overlap-save frames (C, K, 2p) -> X (C, K, p+1); scratch C*K*2p values.
+// The forward transform in T, packed: frames (C, K, p) or, kOsa,
+// materialized overlap-save frames (C, K, 2p) -> X (C, K, p+1); scratch
+// C*K*p values.  Pass 2 holds R >= 2 rows (a row and its partner) at
+// every supported p: at most 256-point rows against a row budget of at
+// least 1024 values.
 template <class T, bool kOsa>
 int frames_rfft_impl(const void* in, void* scratch, void* X, int C, int K,
                      int p, void* stream) {
   typedef typename Cx<T>::R Real;
   if (!pow2_partition(p) || C < 1 || K < 1) return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  const int lN = ilog2(2 * p);
-  const int lN1 = lN / 2, lN2 = lN - lN1;
-  const int N1 = 1 << lN1, N2 = 1 << lN2;
+  const int lM = ilog2(p);
+  const int lM1 = lM / 2, lM2 = lM - lM1;
+  const int M2 = 1 << lM2;
   const int rows = C * K;
-  const int lR1 = fft_rows_log2<T>(lN1, lN2);
-  const int rc = launch_fft<T>(fwd_pass1<T, kOsa>, dim3(rows, N2 >> lR1),
-                               lR1, lN1, st, (const Real*)in, (T*)scratch, K,
-                               p, lN1, N2, lR1);
+  const int lR1 = fft_rows_log2<T>(lM1, lM2);
+  const int rc = launch_fft<T>(fwd_packed_pass1<T, kOsa>,
+                               dim3(rows, M2 >> lR1), lR1, lM1, st,
+                               (const Real*)in, (T*)scratch, K, lM1, M2, lR1);
   if (rc != 0) return rc;
-  const int lR2 = fft_rows_log2<T>(lN2, lN1);
-  return launch_fft<T>(fwd_pass2<T>, dim3(rows, N1 >> lR2), lR2, lN2, st,
-                       (const T*)scratch, (T*)X, p, N1, lN2, lR2);
+  const int lR2 = fft_rows_log2<T>(lM2, lM1);
+  return launch_fft<T>(fwd_packed_pass2<T>, dim3(rows << (lM1 - lR2)), lR2,
+                       lM2, st, (const T*)scratch, (T*)X, lM1, lM2, lR2);
 }
 
 // The inverse in T: Y (C, K, p+1) -> y (C, K, p); scratch C*K*2p values.
@@ -672,8 +798,9 @@ int frame_conv_mac_tile(int P) { return mac_tile<float2>(P); }
 int frame_conv_mac_tile_c128(int P) { return mac_tile<double2>(P); }
 
 // Each entry returns 0 on success, -1 for an unsupported shape, else the
-// CUDA error.  The transforms take a complex scratch of C*K*2p values of
-// their complex type.
+// CUDA error.  The transforms take a complex scratch of their complex
+// type: C*K*p values for the forward (frames_rfft, osa_rfft), C*K*2p for
+// the inverse; a larger one is fine.
 int frames_rfft_f32(const void* frames, void* scratch, void* X, int C,
                     int K, int p, void* stream) {
   return frames_rfft_impl<float2, false>(frames, scratch, X, C, K, p,
@@ -725,7 +852,7 @@ int fused_conv_f32(const void* frames, const void* H, void* scratch,
   float2* s = (float2*)scratch;
   const float2* h = (const float2*)H;
   const int lR1 = fft_rows_log2<float2>(lN1, lN2);
-  int rc = launch_fft<float2>(fwd_pass1<float2, false>,
+  int rc = launch_fft<float2>(fwd_pass1<float2>,
                               dim3(rows, N2 >> lR1), lR1, lN1, st,
                               (const float*)frames, s, K, p, lN1, N2, lR1);
   if (rc != 0) return rc;

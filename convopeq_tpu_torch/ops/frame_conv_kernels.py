@@ -24,23 +24,23 @@ measured on an H100 80GB HBM3 at 700 W):
 
 frames_rfft — replaces `_fwd_frames_kernel` (`rfft_frames_two_stage_pallas`)
     and, in f64, `_fwd_dd_kernel` (`pallas_dd_fft.py`).
-    Per frame: 128 KB of samples in, about 1 MB of complex scratch out and
-    back in (two passes of the four-step FFT), 256 KB of spectrum out,
-    against ~5 N log2 N = 5.2 MFLOP (N = 65536): about 4 FLOP per byte,
-    under the card's f32 ridge (~20), so an ideal kernel is bound by
-    memory traffic, most of it the scratch round trip.  This one runs at
-    ~1 TB/s, a third of that bound: its shared-memory stages and the
-    per-block load/transform/store sequence bind it.  The design keeps the
-    [prev | cur] frame out of memory (it is read from the frames directly)
-    and writes only bins k <= p; packing the real input into a half-length
-    complex FFT would halve the work and the scratch, and is left for
-    later.  In f64 every byte count doubles and the operations stay: ~2
-    FLOP a byte against an f64 ridge of ~10 (34 TFLOP/s over 3.35 TB/s),
-    so it is bound by bytes too.
+    The real 2p-point frame [prev | cur] is packed into a p-point complex
+    one (sample pairs as real and imaginary parts), transformed by the
+    two-pass four-step FFT, and split into the real frame's p+1 bins in
+    the second pass.  Per frame: 256 KB of sample pairs read (half of
+    them the previous frame's, again), 256 KB of complex scratch out and
+    back in, 256 KB of spectrum out (1 MB in all, against 1.5 MB for the
+    full-length complex transform), against ~2.5 N log2 N = 2.6 MFLOP
+    (N = 65536): a few FLOP per byte, under the card's f32 ridge (~20),
+    so it is bound by memory traffic, the scratch round trip the largest
+    part that a one-pass kernel could drop.  The [prev | cur] frame is
+    read from the frames directly, never built.  In f64 every byte count
+    doubles and the operations stay: under the f64 ridge of ~10 (34
+    TFLOP/s over 3.35 TB/s), so it is bound by bytes too.
 osa_rfft — replaces `_fwd_kernel` (`rfft_two_stage_pallas`): the same
     transform read from materialized (C, K, 2p) overlap-save frames, f32
-    (pass 1 of frames_rfft with its load switched at compile time).  It
-    reads 256 KB of frame a frame instead of 128 KB.
+    (pass 1 of frames_rfft with its load switched at compile time), so
+    equal to frames_rfft bit for bit on the frames it was built from.
 causal_mac — replaces `_mac_kernel` (`causal_mac_grid_pallas`) and, in
     c128, `_dd_mac_kernel`.
     Per bin and frame: one 8-byte X read and one Y write against P complex
@@ -53,9 +53,12 @@ causal_mac — replaces `_mac_kernel` (`causal_mac_grid_pallas`) and, in
     holds half the bins for the same P (`frame_conv_mac_tile_c128`).
 irfft_valid — replaces `_inv_kernel` (`irfft_valid_two_stage_pallas`)
     and, in f64, `_inv_dd_kernel`.
-    Mirror of frames_rfft: 256 KB of spectrum in, the scratch round trip,
-    128 KB out per frame; bound the same way.  Only the valid second half
-    of each frame is computed in the second pass and written.
+    Still the full-length (N = 2p) complex transform of the Hermitian
+    spectrum: 512 KB of spectrum read (each bin of the upper half read
+    again, conjugated), 1 MB of scratch out and back in, 128 KB out per
+    frame; bound by bytes the same way.  Only the valid second half of
+    each frame is computed in the second pass and written.  The packed
+    half-length inverse, the forward's mirror, is left for later.
 """
 from __future__ import annotations
 
@@ -184,9 +187,12 @@ def _forward(inp, name, p):
     C, K = inp.shape[:2]
     _check_part(p)
     cdtype = COMPLEX_OF[inp.dtype]
+    # the kernel reads each sample pair as one complex value
+    if inp.data_ptr() % (2 * inp.element_size()):
+        inp = inp.clone()
     lib = load("frame_conv")
     X = torch.empty((C, K, p + 1), dtype=cdtype, device=inp.device)
-    scratch = torch.empty((C * K * 2 * p,), dtype=cdtype, device=inp.device)
+    scratch = torch.empty((C * K * p,), dtype=cdtype, device=inp.device)
     with torch.cuda.device(inp.device):
         rc = getattr(lib, entry)(inp.data_ptr(), scratch.data_ptr(),
                                  X.data_ptr(), C, K, p, _stream(inp))

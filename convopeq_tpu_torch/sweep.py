@@ -3,7 +3,7 @@ stated beside the card's name and power limit.
 
     python -m convopeq_tpu_torch.sweep rows         # f64 FFT row budget
     python -m convopeq_tpu_torch.sweep partition    # f64 headline partition
-    python -m convopeq_tpu_torch.sweep ab DIR       # f32 kernels vs DIR's
+    python -m convopeq_tpu_torch.sweep ab DIR       # kernels vs DIR's
 
 - rows: csrc/frame_conv.cu built with -DFC_F64_ROW_ELEMS = 1024, 2048
   and 4096 (complex values per f64 FFT block), one nvcc each, in
@@ -13,10 +13,12 @@ stated beside the card's name and power limit.
 - partition: the folded headline in f64 at 64 streams x 60 s with one
   layer of p = 8192 .. 65536 (`partition=int`): realtime factor (median
   of 3 calls after a warm-up).
-- ab DIR: the f32 frame kernels and the fused kernel of this tree against
-  those of the tree at DIR (another checkout's
-  convopeq_tpu_torch/csrc/frame_conv.cu) on the same inputs: equal bit
-  for bit or not, and their times in the order DIR, this, this, DIR.
+- ab DIR: the entries AB_ENTRIES of this tree's
+  convopeq_tpu_torch/csrc/frame_conv.cu (the f32 forward, osa_rfft, the
+  f64 forward, the c64 MAC, the f32 inverse, the fused kernel) against
+  those of the tree at DIR, each on the same inputs in both builds: equal
+  bit for bit or not, with max |after - before| / max |before|, and
+  their times in the order DIR, this, this, DIR.
 """
 from __future__ import annotations
 
@@ -146,69 +148,93 @@ def partition(card):
         torch.cuda.empty_cache()
 
 
+AB_ENTRIES = ("frames_rfft_f32", "osa_rfft_f32", "frames_rfft_f64",
+              "causal_mac_c64", "irfft_valid_f32", "fused_conv_f32")
+
+
+def _ab_calls(lib, ins, C, K, p, P, fused_shape):
+    """{entry: (call, output)} of library `lib`'s AB_ENTRIES on the shared
+    inputs `ins`, each into buffers of its own."""
+    dev = ins["frames"].device
+    st = _stream(ins["frames"])
+    c64, c128 = torch.complex64, torch.complex128
+    calls = {}
+
+    def forward(entry, inp, cdtype):
+        X = torch.empty((C, K, p + 1), dtype=cdtype, device=dev)
+        # 2p values a frame: what a full-length forward (an older
+        # tree's) needs; the packed one takes p of them
+        sc = torch.empty((C * K * 2 * p,), dtype=cdtype, device=dev)
+        fn = getattr(lib, entry)
+        calls[entry] = (lambda: _check(fn(inp.data_ptr(), sc.data_ptr(),
+                                          X.data_ptr(), C, K, p, st), entry),
+                        X)
+    forward("frames_rfft_f32", ins["frames"], c64)
+    forward("osa_rfft_f32", ins["osa"], c64)
+    forward("frames_rfft_f64", ins["frames64"], c128)
+    X, H = ins["X"], ins["H"]
+    Y = torch.empty_like(X)
+    calls["causal_mac_c64"] = (lambda: _check(lib.causal_mac_c64(
+        X.data_ptr(), H.data_ptr(), Y.data_ptr(), C, K, p + 1, P, st),
+        "mac"), Y)
+    y = torch.empty((C, K, p), device=dev)
+    sc = torch.empty((C * K * 2 * p,), dtype=c64, device=dev)
+    calls["irfft_valid_f32"] = (lambda: _check(lib.irfft_valid_f32(
+        X.data_ptr(), sc.data_ptr(), y.data_ptr(), C, K, p, st),
+        "inverse"), y)
+    Cf, Kf, pf, Pf = fused_shape
+    ffr, Hf = ins["fused_frames"], ins["fused_H"]
+    yf = torch.empty_like(ffr)
+    sf = torch.empty((Cf * Kf * 2 * pf,), dtype=c64, device=dev)
+    calls["fused_conv_f32"] = (lambda: _check(lib.fused_conv_f32(
+        ffr.data_ptr(), Hf.data_ptr(), sf.data_ptr(), yf.data_ptr(), Cf, Kf,
+        pf, Pf, st), "fused"), yf)
+    return calls
+
+
 def ab(card, other: str):
     base = _build.LIBRARIES["frame_conv"]
-    f32 = {k: v for k, v in base.signatures.items()
-           if k in ("frames_rfft_f32", "irfft_valid_f32", "causal_mac_c64",
-                    "fused_conv_f32")}
+    sigs = {k: base.signatures[k] for k in AB_ENTRIES}
     source = Path(other).resolve() / "convopeq_tpu_torch" / "csrc" \
         / "frame_conv.cu"
     trees = {"before": replace(base, name="frame_conv_before", source=source,
-                               signatures=f32),
-             "after": replace(base, signatures=f32)}
+                               signatures=sigs),
+             "after": replace(base, signatures=sigs)}
     built = _build.build_all(trees)
     libs = {k: _build.bind(trees[k], built[k][0]) for k in trees}
     gen = torch.Generator(device="cuda").manual_seed(7)
     C, K, p, P = 8, 88, 32768, 33
+    fused_shape = Cf, Kf, pf, Pf = 8, 352, 8192, 8
+
+    def cplx(shape):
+        return torch.complex(torch.randn(shape, generator=gen, device="cuda"),
+                             torch.randn(shape, generator=gen, device="cuda"))
     frames = torch.randn((C, K, p), generator=gen, device="cuda")
-    H = torch.complex(torch.randn((P, p + 1), generator=gen, device="cuda"),
-                      torch.randn((P, p + 1), generator=gen, device="cuda"))
-    Cf, Kf, pf, Pf = 8, 352, 8192, 8
-    ffr = torch.randn((Cf, Kf, pf), generator=gen, device="cuda")
-    Hf = torch.complex(torch.randn((Pf, pf + 1), generator=gen,
-                                   device="cuda"),
-                       torch.randn((Pf, pf + 1), generator=gen,
-                                   device="cuda"))
-    calls, outs = {}, {}
-    for k, lib in libs.items():
-        fwd, inv, X, y = transforms(lib, frames)
-        Y = torch.empty_like(X)
-        yf = torch.empty_like(ffr)
-        sf = torch.empty((Cf * Kf * 2 * pf,), dtype=torch.complex64,
-                         device="cuda")
-        st = _stream(frames)
-
-        def mac(lib=lib, X=X, Y=Y, st=st):
-            _check(lib.causal_mac_c64(X.data_ptr(), H.data_ptr(),
-                                      Y.data_ptr(), C, K, p + 1, P, st),
-                   "mac")
-
-        def fused(lib=lib, yf=yf, sf=sf, st=st):
-            _check(lib.fused_conv_f32(ffr.data_ptr(), Hf.data_ptr(),
-                                      sf.data_ptr(), yf.data_ptr(), Cf, Kf,
-                                      pf, Pf, st), "fused")
-
-        def inv_y(lib=lib, Y=Y, y=y, st=st, sc=torch.empty(
-                (C * K * 2 * p,), dtype=torch.complex64, device="cuda")):
-            _check(lib.irfft_valid_f32(Y.data_ptr(), sc.data_ptr(),
-                                       y.data_ptr(), C, K, p, st), "inverse")
-        fwd()
-        mac()
-        inv_y()
-        fused()
+    prev = torch.cat([torch.zeros_like(frames[:, :1]), frames[:, :-1]], 1)
+    ins = {"frames": frames, "frames64": frames.double(),
+           "osa": torch.cat([prev, frames], dim=-1),
+           "X": cplx((C, K, p + 1)), "H": cplx((P, p + 1)),
+           "fused_frames": torch.randn((Cf, Kf, pf), generator=gen,
+                                       device="cuda"),
+           "fused_H": cplx((Pf, pf + 1))}
+    calls = {k: _ab_calls(lib, ins, C, K, p, P, fused_shape)
+             for k, lib in libs.items()}
+    outs = {}
+    for k in calls:
+        for fn, _ in calls[k].values():
+            fn()
         torch.cuda.synchronize()
-        outs[k] = [t.clone() for t in (X, Y, y, yf)]
-        calls[k] = {"frames_rfft": fwd, "causal_mac": mac,
-                    "irfft_valid": inv_y, "fused_conv": fused}
-    equal = {name: torch.equal(a, b) for name, a, b in zip(
-        ("frames_rfft", "causal_mac", "irfft_valid", "fused_conv"),
-        outs["before"], outs["after"])}
-    print(f"f32 kernels bit for bit equal to {other}'s: {equal} [{card}]")
-    times = {k: {n: [] for n in calls[k]} for k in calls}
+        outs[k] = {n: out.clone() for n, (_, out) in calls[k].items()}
+    for n in AB_ENTRIES:
+        a, b = outs["before"][n], outs["after"][n]
+        rel = float((b - a).abs().max() / a.abs().max())
+        print(f"{n}: bit for bit equal to {other}'s {torch.equal(a, b)}, "
+              f"max |after - before| / max |before| {rel:.3e} [{card}]")
+    times = {k: {n: [] for n in AB_ENTRIES} for k in calls}
     for k in ("before", "after", "after", "before"):
-        for n, fn in calls[k].items():
+        for n, (fn, _) in calls[k].items():
             times[k][n].append(round(time_ms(fn), 4))
-    print(f"f32 kernel ms, order before, after, after, before (C={C} K={K} "
+    print(f"kernel ms, order before, after, after, before (C={C} K={K} "
           f"p={p} P={P}; fused at C={Cf} K={Kf} p={pf} P={Pf}): {times} "
           f"[{card}]")
 

@@ -7,8 +7,9 @@
 - The CUDA source itself, compiled for the host by
   tests/frame_conv_host_emulation.cpp (every thread of a block a
   coroutine), against the plain versions: the f32 kernels at 2e-5 x max,
-  the f64 kernels at 1e-12 x max against numpy f64, and osa_rfft as the
-  f32 forward.
+  the f64 kernels at 1e-12 x max against numpy f64 (the packed forward
+  bin by bin, in a scratch of exactly C*K*p values with a guard past
+  it), and osa_rfft as the f32 forward, bit for bit.
 """
 import ctypes
 import shutil
@@ -180,16 +181,47 @@ def emulated(tmp_path_factory):
     return lib
 
 
-@pytest.mark.parametrize("p,C,K", [(512, 2, 3), (2048, 1, 5), (65536, 1, 2)])
+def _check_bins(X, ref, rel):
+    """Every bin of X (..., p+1) within rel x max|ref| of ref; a failure
+    names the bins off, and DC, k = p/2 and Nyquist always."""
+    p = ref.shape[-1] - 1
+    err = np.abs(np.asarray(X) - ref).reshape(-1, p + 1).max(axis=0)
+    tol = rel * np.abs(ref).max()
+    bad = np.flatnonzero(err > tol)
+    assert bad.size == 0, (
+        f"{bad.size} of {p + 1} bins off by more than {tol:.3e}: "
+        + ", ".join(f"k = {k} {err[k]:.3e}" for k in bad[:8])
+        + f"; DC {err[0]:.3e}, k = p/2 {err[p // 2]:.3e}, "
+        f"Nyquist {err[p]:.3e}")
+
+
+def _forward_scratch(n, dtype):
+    """The forward's scratch of n complex values and a guard past it."""
+    s = torch.empty((n + 64,), dtype=dtype)
+    s[n:] = 12345.0
+    return s
+
+
+def _guard_intact(scratch, n):
+    return bool((scratch[n:] == 12345.0).all())
+
+
+@pytest.mark.parametrize("p,C,K", [(512, 2, 3), (2048, 1, 5), (4096, 1, 3),
+                                   (512, 1, 1), (65536, 1, 2)])
 def test_cuda_source_transforms_emulated(emulated, p, C, K):
+    """The packed forward in a scratch of C*K*p values, every bin against
+    numpy's f64 rfft; the inverse against the plain f64 inverse."""
     rng = np.random.default_rng(p + C)
     fr = torch.from_numpy(_frames(rng, C, K, p))
     X = torch.empty((C, K, p + 1), dtype=torch.complex64)
-    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex64)
+    n = C * K * p
+    scratch = _forward_scratch(n, torch.complex64)
     assert emulated.frames_rfft_f32(fr.data_ptr(), scratch.data_ptr(),
                                     X.data_ptr(), C, K, p, None) == 0
-    ref = fk.frames_rfft_plain(fr.double())
-    assert float((X - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    assert _guard_intact(scratch, n)
+    _check_bins(X.numpy(), np.fft.rfft(_osa_np(fr.double().numpy()),
+                                       axis=-1), 2e-5)
+    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex64)
     Y = torch.from_numpy(_cplx(rng, (C, K, p + 1)))
     y = torch.empty((C, K, p), dtype=torch.float32)
     assert emulated.irfft_valid_f32(Y.data_ptr(), scratch.data_ptr(),
@@ -235,18 +267,20 @@ def _osa_np(fr):
     return np.concatenate([prev, fr], axis=-1)
 
 
-@pytest.mark.parametrize("p,C,K", [(512, 2, 3), (2048, 1, 5), (65536, 1, 2)])
+@pytest.mark.parametrize("p,C,K", [(512, 2, 3), (2048, 1, 5), (4096, 1, 3),
+                                   (2048, 1, 1), (65536, 1, 2)])
 def test_cuda_source_f64_transforms_emulated(emulated, p, C, K):
     rng = np.random.default_rng(p + 5 * C)
     fr = _frames(rng, C, K, p, np.float64)
     X = torch.empty((C, K, p + 1), dtype=torch.complex128)
-    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex128)
+    n = C * K * p
+    scratch = _forward_scratch(n, torch.complex128)
     frt = torch.from_numpy(fr)
     assert emulated.frames_rfft_f64(frt.data_ptr(), scratch.data_ptr(),
                                     X.data_ptr(), C, K, p, None) == 0
-    ref = np.fft.rfft(_osa_np(fr), axis=-1)
-    np.testing.assert_allclose(X.numpy(), ref, rtol=0,
-                               atol=1e-12 * np.abs(ref).max())
+    assert _guard_intact(scratch, n)
+    _check_bins(X.numpy(), np.fft.rfft(_osa_np(fr), axis=-1), 1e-12)
+    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex128)
     Y = _cplx(rng, (C, K, p + 1), np.complex128)
     y = torch.empty((C, K, p), dtype=torch.float64)
     Yt = torch.from_numpy(Y)
@@ -278,7 +312,8 @@ def test_cuda_source_f64_mac_emulated(emulated, C, K, P, B):
                                atol=1e-12 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("p,C,K", [(512, 2, 3), (4096, 1, 3)])
+@pytest.mark.parametrize("p,C,K", [(512, 2, 3), (4096, 1, 3), (2048, 1, 1),
+                                   (65536, 1, 2)])
 def test_cuda_source_osa_rfft_emulated(emulated, p, C, K):
     """osa_rfft of materialized frames: the f32 forward's transform, so
     equal to frames_rfft_f32 on the frames they were built from."""
@@ -287,11 +322,12 @@ def test_cuda_source_osa_rfft_emulated(emulated, p, C, K):
     osa = torch.from_numpy(_osa_np(fr))
     X = torch.empty((C, K, p + 1), dtype=torch.complex64)
     Xf = torch.empty_like(X)
-    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex64)
+    n = C * K * p
+    scratch = _forward_scratch(n, torch.complex64)
     assert emulated.osa_rfft_f32(osa.data_ptr(), scratch.data_ptr(),
                                  X.data_ptr(), C, K, p, None) == 0
-    ref = fk.osa_rfft_plain(osa.double())
-    assert float((X - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    assert _guard_intact(scratch, n)
+    _check_bins(X.numpy(), np.fft.rfft(osa.double().numpy(), axis=-1), 2e-5)
     frt = torch.from_numpy(fr)
     assert emulated.frames_rfft_f32(frt.data_ptr(), scratch.data_ptr(),
                                     Xf.data_ptr(), C, K, p, None) == 0

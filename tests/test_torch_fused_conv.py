@@ -143,7 +143,8 @@ def emulated(tmp_path_factory):
 # K < P and ragged K included; C = 1 and C = 2
 @pytest.mark.parametrize("p,P,C,K", [(512, 1, 1, 3), (512, 5, 2, 3),
                                      (512, 8, 1, 11), (2048, 1, 2, 5),
-                                     (2048, 5, 1, 13), (2048, 8, 2, 6)])
+                                     (2048, 5, 1, 13), (2048, 8, 2, 6),
+                                     (4096, 3, 1, 4)])
 def test_cuda_source_fused_conv_emulated(emulated, p, P, C, K):
     rng = np.random.default_rng(p + 10 * P + K)
     fr = torch.from_numpy(rng.normal(size=(C, K, p)).astype(np.float32))
