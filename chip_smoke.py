@@ -48,8 +48,11 @@
    p = 4096, P = 5, K = 118: the room IR's L1 at 10 s): max |diff| <=
    1e-4 x max |plain| (tests/test_pallas.py's bound for the TPU kernel),
    finite; the kernel's, the plain version's, the three frame kernels'
-   and the library transforms' times (CUDA events, median of 7) and the
-   bound.
+   and the library transforms' times (CUDA events, median of 7), the
+   bound, and the device time of each of its three launches (the packed
+   forward's pass 1, the fused row pass, the packed inverse's pass 2) as
+   in 3.  It runs right after 3c: placed after phase 6, torch.profiler
+   traced no kernel of it on an H100.
 8. The prefilter chain (1M-tap IR as the reference's 3-layer NUC, the
    EQ, DC blockers, output filter and HC/LC curve folded into an
    8192 x 8 prefilter): (a) 4 streams x 10 s f32 kernels against the f64
@@ -125,8 +128,10 @@ REPLACES = {
     "osa_rfft": "convopeq_tpu/ops/pallas_gemm_fft.py:133",
 }
 # fused kernel check shapes (C, K, p, P): the prefilter at 60 s, the
-# fused2 near layer at 60 s, the room IR's L1 at 10 s
-FUSED_SHAPES = [(8, 352, 8192, 8), (8, 176, 16384, 8), (8, 118, 4096, 5)]
+# fused2 near layer at 60 s, the room IR's L1 at 10 s, and the largest
+# partition the kernel takes (its row pass at 256 threads a block)
+FUSED_SHAPES = [(8, 352, 8192, 8), (8, 176, 16384, 8), (8, 118, 4096, 5),
+                (8, 44, 65536, 8)]
 # one H100 SXM (NVIDIA's data sheet): device memory rate, f32 and f64
 # rates outside the tensor cores
 MEM_BYTES_S = 3.35e12
@@ -163,6 +168,13 @@ def time_ms(fn, reps=7):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def rfft_ops(p):
+    """Operations of one real 2p-point transform as the kernels run it:
+    the packed p-point complex FFT (2.5 p log2 p) and the split between it
+    and the real frame's bins (~10 a bin)."""
+    return 2.5 * p * math.log2(p) + 10 * p
 
 
 def bound(nbytes, ops, ops_s=F32_OPS_S):
@@ -220,7 +232,7 @@ def phase_kernels(card, dtype=torch.float32):
                                 frames[:, :-1]], dim=1), frames], dim=-1)
     B = P_SIZE + 1
     n_fft = 2 * P_SIZE
-    fft_ops = C * K * 2.5 * n_fft * math.log2(n_fft)
+    fft_ops = C * K * rfft_ops(P_SIZE)
     mac_ops = 8 * B * C * sum(min(k + 1, NPARTS) for k in range(K))
     item = frames.element_size()
     spec_bytes, sig_bytes = C * K * B * 2 * item, C * K * P_SIZE * item
@@ -262,28 +274,34 @@ def phase_kernels(card, dtype=torch.float32):
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": library_ms}
     rows[names[0]]["passes"] = pass_times(
-        card, lambda: fk.frames_rfft(frames), frames)
+        card, lambda: fk.frames_rfft(frames), frames,
+        ("fwd_packed_pass1", "fwd_packed_pass2"))
     rows[names[2]]["passes"] = pass_times(
-        card, lambda: fk.irfft_valid(Y_plain), frames)
+        card, lambda: fk.irfft_valid(Y_plain), frames,
+        ("inv_packed_pass1", "inv_packed_pass2"))
     return rows
 
 
 # real values of the frames' type that each transform pass reads and
 # writes a frame of p samples: the packed forward reads p sample pairs and
 # writes p complex values (pass 1), then reads them and writes p+1 bins
-# (pass 2); the full-length inverse reads 2p complex values (the upper
-# half's conjugates read again) and writes 2p (pass 1), then reads 2p and
-# writes p samples (pass 2)
+# (pass 2); the packed inverse reads each of the p+1 bins twice (as bin k
+# and as partner p-k) and writes p complex values (pass 1), then reads
+# them and writes p/2 sample pairs (pass 2); the fused row pass reads and
+# writes p complex values (the fused kernel runs the forward's pass 1,
+# that pass and the inverse's pass 2)
 PASS_VALUES = {"fwd_packed_pass1": lambda p: 2 * p + 2 * p,
                "fwd_packed_pass2": lambda p: 2 * p + 2 * (p + 1),
-               "inv_pass1": lambda p: 4 * p + 4 * p,
-               "inv_pass2": lambda p: 4 * p + p}
+               "inv_packed_pass1": lambda p: 4 * (p + 1) + 2 * p,
+               "inv_packed_pass2": lambda p: 2 * p + p,
+               "fused_packed_rows": lambda p: 2 * p + 2 * p}
 
 
-def pass_times(card, fn, frames):
+def pass_times(card, fn, frames, expect):
     """Device time of each pass of one call fn() (torch.profiler, by
     kernel name), with the bytes the pass reads and writes and its rate;
-    printed on one line and returned as {pass: {ms, bytes, GB/s}}."""
+    printed on one line and returned as {pass: {ms, bytes, GB/s}}.  Fails
+    when a pass in `expect`, which fn() launches, was not traced."""
     frames_n = frames.shape[0] * frames.shape[1]
     p, item = frames.shape[-1], frames.element_size()
     _wall, prof = headline.profile_call(fn)
@@ -299,8 +317,11 @@ def pass_times(card, fn, frames):
                      f"{nbytes / ms / 1e6:.0f} GB/s")
     print(f"passes of one call ({str(frames.dtype)[6:]}, C={frames.shape[0]}"
           f" K={frames.shape[1]} p={p}; torch.profiler device time, bytes as "
-          f"each pass reads and writes them): "
-          f"{'; '.join(parts) or 'no pass traced'} [{card}]")
+          f"each pass reads and writes them): {'; '.join(parts)} [{card}]")
+    missed = [name for name in expect if name not in out]
+    check(not missed, f"torch.profiler traced no {missed} of a call that "
+          f"launches them ({len(prof)} device kernels traced: "
+          f"{[r[0][:60] for r in prof[:3]]})")
     return out
 
 
@@ -329,7 +350,7 @@ def phase_self_check(card):
     library_ms = time_ms(lambda: torch.fft.rfft(osa, dim=-1))
     n_fft = 2 * P_SIZE
     bound_ms, bound_by = bound(C * K * n_fft * 4 + C * K * (P_SIZE + 1) * 8,
-                               C * K * 2.5 * n_fft * math.log2(n_fft))
+                               C * K * rfft_ops(P_SIZE))
     print(f"self-check path (osa_rfft -> irfft_valid), sum {total:.6e}: "
           f"osa_rfft max|diff| {err:.3e} vs torch.fft.rfft, {err_frames:.3e} "
           f"vs frames_rfft (tol {2e-5 * scale:.3e}; bit for bit {same})  "
@@ -656,8 +677,7 @@ def phase_fused_kernel(card):
             fk.frames_rfft(frames), H)))
         library_ms = time_ms(lambda: torch.fft.irfft(
             torch.fft.rfft(osa, dim=-1), n=2 * p, dim=-1))
-        n_fft = 2 * p
-        ops = (C_ * K_ * 2 * 2.5 * n_fft * math.log2(n_fft)
+        ops = (C_ * K_ * 2 * rfft_ops(p)
                + 8 * (p + 1) * C_ * sum(min(k + 1, P) for k in range(K_)))
         bound_ms, bound_by = bound(2 * C_ * K_ * p * 4 + P * (p + 1) * 8, ops)
         print(f"fused_conv C={C_} K={K_} p={p} P={P}: max|diff| {err:.3e} "
@@ -665,9 +685,13 @@ def phase_fused_kernel(card):
               f"{ms:.3f} ms  three frame kernels {three_ms:.3f} ms  plain "
               f"{plain_ms:.3f} ms  library rfft+irfft {library_ms:.3f} ms  "
               f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+        passes = pass_times(card, lambda: fc.fused_conv(frames, H), frames,
+                            ("fwd_packed_pass1", "fused_packed_rows",
+                             "inv_packed_pass2"))
         rows.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": library_ms, "three_kernel_ms": three_ms})
+                     "library_ms": library_ms, "three_kernel_ms": three_ms,
+                     "passes": passes})
         del frames, H, ref, out, osa
     return rows[0]
 
@@ -874,10 +898,10 @@ def main():
     rows = phase_kernels(card)
     rows.update(phase_kernels(card, torch.float64))
     rows["osa_rfft"], self_check = phase_self_check(card)
+    rows["fused_conv"] = phase_fused_kernel(card)
     headline_rtf = phase_headline(card)
     rows["error_feedback_quantize"] = phase_quantizer(card)
     config6_launches = phase_config6(card)
-    rows["fused_conv"] = phase_fused_kernel(card)
     by_path = {"config6": config6_launches}
     by_path["prefilter"], _ = phase_prefilter(card)
     by_path["fused2"] = phase_fused2(card, headline_rtf)

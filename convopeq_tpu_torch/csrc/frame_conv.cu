@@ -15,7 +15,7 @@
 //   fused_conv    replaces _fused_conv_kernel (fused_conv_frames_pallas):
 //                 the three above in one launch sequence for P <= 8
 //                 partitions, with X and Y kept out of device memory
-//                 (design at fused_rows, below), f32
+//                 (design at fused_packed_rows, below), f32
 //
 // The TPU computed its f64 tier in double-f32 arithmetic (Ozaki-sliced
 // bf16 GEMMs, two_sum/two_prod, power-of-two normalization) because it
@@ -39,18 +39,20 @@
 // with a per-block twiddle table from sincospif / sincospi (exact
 // arguments: every angle is a dyadic multiple of pi).
 //
-// The forward (frames_rfft, osa_rfft) packs the real 2p-point frame into
-// a p-point complex one, z[n] = x[2n] + i x[2n+1], transforms that (M =
-// p) and splits the result into the real frame's bins in its second
-// pass: half the butterflies and half the scratch of a full-length
-// complex FFT.  The inverse and the fused kernel's forward (whose row
-// pass needs all 2p bins of a row) still transform the full M = N = 2p
-// points.
+// Every transform runs on the packed half-length grid.  The forward
+// (frames_rfft, osa_rfft) packs the real 2p-point frame into a p-point
+// complex one, z[n] = x[2n] + i x[2n+1], transforms that (M = p) and
+// splits the result into the real frame's bins in its second pass; the
+// inverse (irfft_valid) combines bins k and p-k into the p-point
+// spectrum of z in its first pass, transforms that, and writes the valid
+// half as sample pairs in its second; fused_conv runs the forward's pass
+// 1, one row pass (split, MAC, combine) and the inverse's pass 2.  Half
+// the butterflies and half the scratch of a full-length complex FFT.
 //
-// Every kernel but fused_rows loops over its work with a stride of
+// Every kernel but fused_packed_rows loops over its work with a stride of
 // blockDim.x, so its result does not depend on the block size it is
-// launched with; fused_rows keeps kMidElems values a thread in registers
-// and needs its block of kMidThreads.  With FRAME_CONV_HOST_EMULATION
+// launched with; fused_packed_rows keeps a bin pair a thread in registers
+// and needs its block of M2 threads.  With FRAME_CONV_HOST_EMULATION
 // defined, FC_LAUNCH, FC_DYNAMIC_SMEM and the CUDA names used here come
 // from the host emulator tests/frame_conv_host_emulation.cpp, which runs
 // every thread of a block as a coroutine that yields at each barrier.
@@ -349,129 +351,125 @@ __global__ void fwd_packed_pass2(const T* __restrict__ scratch,
   }
 }
 
-// The full-length forward pass 1 of fused_conv_f32: block (f, group of R
-// columns n2): N1-point FFT over n1 of osa[n1*N2 + n2], N = 2p, times
-// W_N^{n2*k1}, to scratch[f][k1][n2]; the osa frame is [frames[k-1] |
-// frames[k]] read from the frames.
-template <class T>
-__global__ void fwd_pass1(const typename Cx<T>::R* __restrict__ in,
-                          T* __restrict__ scratch, int K, int p, int lN1,
-                          int N2, int lR) {
-  typedef typename Cx<T>::R Real;
-  FC_DYNAMIC_SMEM(T, fc_smem);
-  const int N1 = 1 << lN1, R = 1 << lR, ld = row_stride(N1, lR);
-  T* a = fc_smem;
-  T* b = a + R * ld;
-  T* tw = b + R * ld;
-  const int f = blockIdx.x;
-  const int k = f % K;
-  const int n20 = blockIdx.y * R;
-  const Real* cur = in + (size_t)f * p;
-  fill_twiddles(tw, lN1, Real(-1));
-  for (int e = threadIdx.x; e < R * N1; e += blockDim.x) {
-    const int n1 = e >> lR;
-    const int r = e & (R - 1);
-    const int j = n1 * N2 + n20 + r;          // index in the osa frame
-    // j < p reads frame k-1 (cur - p), zero before the first frame
-    const Real v = (j >= p || k > 0) ? cur[j - p] : Real(0);
-    a[r * ld + n1] = Cx<T>::make(v, Real(0));
-  }
-  const T* res = fft_rows(a, b, tw, lN1, lR, ld);
-  const int N = N1 * N2;
-  for (int e = threadIdx.x; e < R * N1; e += blockDim.x) {
-    const int k1 = e >> lR;
-    const int r = e & (R - 1);
-    const int n2 = n20 + r;
-    scratch[((size_t)f * N1 + k1) * N2 + n2] =
-        cmul(res[r * ld + k1], Cx<T>::twiddle(n2 * k1, N, Real(-1)));
-  }
+// Block blockIdx.x of a pass in which each frame takes 2^lnb blocks:
+// (frame f, block j of the frame), a frame's blocks side by side.  Frame
+// by frame (the frame index varying fastest) was measured on an H100: the
+// inverse's pass 1 then took 14-20% longer, likely because the partner
+// bins it reads again were no longer in L2, and its f64 pass 2 28-29%
+// longer (PERF.md, the packed inverse's findings).
+__device__ __forceinline__ void frame_block(int lnb, int* f, int* j) {
+  const int b = blockIdx.x;
+  *f = b >> lnb;
+  *j = b & ((1 << lnb) - 1);
 }
 
 // ---- inverse: Y (C, K, p+1) complex -> y (C, K, p) real, valid half ----
-// Hermitian spectrum Z[k] (Z[N-k] = conj Z[k]; DC and Nyquist imaginary
-// parts ignored), y[n] = (1/N) sum_k Z[k] e^{+2 pi i k n / N} for
-// n in [p, 2p).  k = ka + N1*kb, n = nb + N2*na: the valid half is
-// exactly na >= N1/2.
+// The packed half-length inverse (replaces the inverse of _inv_kernel and
+// _inv_dd_kernel), the forward's split run backwards.  With Y the real
+// frame's bins (DC's and Nyquist's imaginary parts ignored) and
+// T = e^{+i pi k / p}, the p-point spectrum of z[n] = x[2n] + i x[2n+1],
+// times two, is
+//   W[k] = A + i T B,  A = Y[k] + conj Y[p-k],  B = Y[k] - conj Y[p-k],
+// (k = 0: A = Re Y[0] + Re Y[p], B = Re Y[0] - Re Y[p]), and
+//   z[n] = (1 / 2p) sum_k W[k] e^{+2 pi i k n / p}.
+// Four-step grid M = p = M1*M2: bin k = ka + M1*kb, z index n = nb +
+// M2*na.  The valid half x[p..2p) is z[n] for n >= p/2, exactly the rows
+// na >= M1/2 of pass 2, one aligned float2 / double2 store a sample pair.
+// Per f32 frame: 8p B of spectrum read twice (as bin k and as partner
+// p-k, in L2 when a frame's blocks run together), 8p B of scratch out and
+// back in, 4p B out.
 
-// Pass 1: block (f, group of R values ka): N2-point inverse FFT over kb,
-// times e^{+2 pi i ka*nb / N}, to scratch[f][nb][ka].
+// Pass 1: block (f, group of R columns ka): W[k] from Y[k] and its
+// partner Y[p-k] (another column, read straight from Y), the M2-point
+// inverse FFT over kb, times e^{+2 pi i ka*nb / p}, to scratch[f][nb][ka]
+// (p values a frame).
 template <class T>
-__global__ void inv_pass1(const T* __restrict__ Y, T* __restrict__ scratch,
-                          int p, int N1, int lN2, int lR) {
+__global__ void inv_packed_pass1(const T* __restrict__ Y,
+                                 T* __restrict__ scratch, int lM1, int lM2,
+                                 int lR) {
   typedef typename Cx<T>::R Real;
   FC_DYNAMIC_SMEM(T, fc_smem);
-  const int N2 = 1 << lN2, R = 1 << lR, ld = row_stride(N2, lR);
+  const int M1 = 1 << lM1, M2 = 1 << lM2, R = 1 << lR;
+  const int ld = row_stride(M2, lR);
+  const int p = M1 * M2;
   T* a = fc_smem;
   T* b = a + R * ld;
   T* tw = b + R * ld;
-  const int f = blockIdx.x;
-  const int ka0 = blockIdx.y * R;
-  const int N = N1 * N2;
+  int f, j;
+  frame_block(lM1 - lR, &f, &j);
+  const int ka0 = j * R;
   const T* Yf = Y + (size_t)f * (p + 1);
-  fill_twiddles(tw, lN2, Real(1));
-  for (int e = threadIdx.x; e < R * N2; e += blockDim.x) {
+  fill_twiddles(tw, lM2, Real(1));
+  for (int e = threadIdx.x; e < R * M2; e += blockDim.x) {
     const int kb = e >> lR;
     const int r = e & (R - 1);
-    const int kk = ka0 + r + N1 * kb;
-    T v;
-    if (kk == 0 || kk == p) {
-      v = Cx<T>::make(Yf[kk].x, Real(0));
-    } else if (kk < p) {
-      v = Yf[kk];
+    const int k = ka0 + r + M1 * kb;
+    const T yk = Yf[k], yq = Yf[p - k];
+    T w;
+    if (k == 0) {
+      w = Cx<T>::make(yk.x + yq.x, yk.x - yq.x);
     } else {
-      const T t = Yf[N - kk];
-      v = Cx<T>::make(t.x, -t.y);
+      const T A = Cx<T>::make(yk.x + yq.x, yk.y - yq.y);
+      const T tB = cmul(Cx<T>::twiddle(k, 2 * p, Real(1)),
+                        Cx<T>::make(yk.x - yq.x, yk.y + yq.y));
+      w = Cx<T>::make(A.x - tB.y, A.y + tB.x);
     }
-    a[r * ld + kb] = v;
+    a[r * ld + kb] = w;
   }
-  const T* res = fft_rows(a, b, tw, lN2, lR, ld);
-  for (int e = threadIdx.x; e < R * N2; e += blockDim.x) {
+  const T* res = fft_rows(a, b, tw, lM2, lR, ld);
+  for (int e = threadIdx.x; e < R * M2; e += blockDim.x) {
     const int nb = e >> lR;
     const int r = e & (R - 1);
     const int ka = ka0 + r;
-    scratch[((size_t)f * N2 + nb) * N1 + ka] =
-        cmul(res[r * ld + nb], Cx<T>::twiddle(ka * nb, N, Real(1)));
+    scratch[((size_t)f * M2 + nb) * M1 + ka] =
+        cmul(res[r * ld + nb], Cx<T>::twiddle(ka * nb, p, Real(1)));
   }
 }
 
-// Pass 2: block (f, group of R values nb): N1-point inverse FFT over ka,
-// real part of the outputs na >= N1/2 only, scaled by 1/N.  The scratch
-// holds frame f as [nb][ka] (from inv_pass1) or, kByRows, as [ka][nb]
-// (from fused_rows, which writes in place of the forward's [k1][n2]).
+// Pass 2: block (f, group of R values nb): M1-point inverse FFT over ka,
+// the outputs na >= M1/2 only, scaled by 1/(2p), each as the sample pair
+// (x[2n], x[2n+1]).  The scratch holds frame f as [nb][ka] (from
+// inv_packed_pass1) or, kByRows, as [ka][nb] (from fused_packed_rows,
+// which writes in place of the forward's [k1][n2]).
 template <class T, bool kByRows>
-__global__ void inv_pass2(const T* __restrict__ scratch,
-                          typename Cx<T>::R* __restrict__ y, int p, int lN1,
-                          int N2, int lR) {
+__global__ void inv_packed_pass2(const T* __restrict__ scratch,
+                                 typename Cx<T>::R* __restrict__ y,
+                                 int lM1, int lM2, int lR) {
   typedef typename Cx<T>::R Real;
   FC_DYNAMIC_SMEM(T, fc_smem);
-  const int N1 = 1 << lN1, R = 1 << lR, ld = row_stride(N1, lR);
+  const int M1 = 1 << lM1, M2 = 1 << lM2, R = 1 << lR;
+  const int ld = row_stride(M1, lR);
+  const int p = M1 * M2;
   T* a = fc_smem;
   T* b = a + R * ld;
   T* tw = b + R * ld;
-  const int f = blockIdx.x;
-  const int nb0 = blockIdx.y * R;
-  fill_twiddles(tw, lN1, Real(1));
+  int f, j;
+  frame_block(lM2 - lR, &f, &j);
+  const int nb0 = j * R;
+  fill_twiddles(tw, lM1, Real(1));
   if (kByRows) {
     // neighbouring threads take neighbouring nb: contiguous reads
-    const T* src = scratch + (size_t)f * N1 * N2 + nb0;
-    for (int e = threadIdx.x; e < R * N1; e += blockDim.x) {
+    const T* src = scratch + (size_t)f * p + nb0;
+    for (int e = threadIdx.x; e < R * M1; e += blockDim.x) {
       const int ka = e >> lR;
       const int r = e & (R - 1);
-      a[r * ld + ka] = src[(size_t)ka * N2 + r];
+      a[r * ld + ka] = src[(size_t)ka * M2 + r];
     }
   } else {
-    const T* src = scratch + ((size_t)f * N2 + nb0) * N1;
-    for (int e = threadIdx.x; e < R * N1; e += blockDim.x)
-      a[(e >> lN1) * ld + (e & (N1 - 1))] = src[e];
+    const T* src = scratch + ((size_t)f * M2 + nb0) * M1;
+    for (int e = threadIdx.x; e < R * M1; e += blockDim.x)
+      a[(e >> lM1) * ld + (e & (M1 - 1))] = src[e];
   }
-  const T* res = fft_rows(a, b, tw, lN1, lR, ld);
-  const Real scale = Real(1) / (Real)(N1 * N2);
-  const int hA = N1 >> 1;
-  Real* yf = y + (size_t)f * p;
+  const T* res = fft_rows(a, b, tw, lM1, lR, ld);
+  const Real scale = Real(1) / (Real)(2 * p);
+  const int hA = M1 >> 1;
+  // sample pair n - p/2 = nb + M2*(na - M1/2) of the valid half
+  T* yf = reinterpret_cast<T*>(y + (size_t)f * p);
   for (int e = threadIdx.x; e < R * hA; e += blockDim.x) {
     const int i = e >> lR;
     const int r = e & (R - 1);
-    yf[nb0 + r + N2 * i] = res[r * ld + hA + i].x * scale;
+    const T z = res[r * ld + hA + i];
+    yf[nb0 + r + M2 * i] = Cx<T>::make(z.x * scale, z.y * scale);
   }
 }
 
@@ -524,145 +522,201 @@ __global__ void causal_mac_kernel(const T* __restrict__ X,
 //
 // On the TPU the whole pipeline ran per frame tile in VMEM, with a ring
 // of the last 16 frames' spectra.  Here one frame's spectrum at
-// p = 8192 is 128 KB, and P of them per channel-stream exceed a block's
-// shared memory, so the work is cut by bin group instead of by frame:
+// p = 8192 is 64 KB, and P of them per channel-stream exceed a block's
+// shared memory, so the work is cut by bin group instead of by frame,
+// on the packed grid (M = p = M1*M2, bin k = k1 + M1*k2):
 //
-//   1. fwd_pass1, the full-length forward pass 1 (frames_rfft's packed
-//      transform has no row of all 2p bins to hand on): the N1-point
-//      column FFTs of every 2p-point frame, times the twiddle, to
-//      scratch[f][k1][n2].
-//   2. fused_rows: block (c, group of R rows k1) walks the K frames of c
-//      in order.  A row k1 of the forward's second stage yields the bins
-//      k = k1 + N1*k2 for all N2 values k2, over the full 2p-point
-//      spectrum: exactly the bins that the inverse's first stage reads
-//      for its row ka = k1 (k = ka + N1*kb), the Hermitian half k > p
-//      included.  So the forward's second stage, the MAC and the
-//      inverse's first stage run on the same rows with no exchange
-//      between blocks, and X and Y never leave the block.  The price is
-//      that the MAC runs on all 2p bins, not p+1.  Each thread keeps the
-//      last P spectra of its kMidElems bins and their P partition values
-//      in registers (a ring shifted by one a frame, P a template
-//      parameter): no shared-memory traffic for the MAC, no barrier.
-//      A shared-memory ring with H beside it would take 128 B a bin at
-//      P = 8, 64 KB for a block's 512 bins; in registers the block fits
-//      twice on an SM (128 registers a thread at P = 8, no spills).
-//      The result, times the inverse twiddle, goes back in place of the
-//      rows it was read from, as scratch[f][ka][nb].
-//   3. inv_pass2<float2, true>: the N1-point inverse FFTs, valid half.
+//   1. fwd_packed_pass1, as frames_rfft runs it: the M1-point column
+//      FFTs of every packed frame, times the twiddle, to
+//      scratch[f][k1][n2] (p values a frame).
+//   2. fused_packed_rows: block (c, row pair) walks the K frames of c in
+//      order.  It holds row k1 and its partner row packed_partner(k1),
+//      as fwd_packed_pass2 does, so that the row FFTs give Z[k] and
+//      Z[p-k] of every bin pair in one block; the split gives X[k] and
+//      X[p-k]; the MAC runs on the p+1 bins of the real frame, each
+//      against its own H[k]; and the inverse's pre-combine gives W[k]
+//      and W[p-k] in the slots they came from.  A row k1 of the
+//      forward's second stage holds the bins k = k1 + M1*k2 for all M2
+//      values k2: exactly the row ka = k1 of the inverse's first stage
+//      (k = ka + M1*kb), so the inverse row FFTs run on the same rows,
+//      with no exchange between blocks, and X and Y never leave the
+//      block.  Each thread owns one bin and its partner (in row 0, the
+//      self-paired bins 0 / p and p/2 together): the split, a register
+//      ring of their last P spectra beside their P partition values (a
+//      ring shifted by one a frame, P a template parameter), the MAC
+//      and the pre-combine stay inside the thread, and each
+//      shared-memory slot between the two row FFTs is read and written
+//      by its own thread only: no barrier.  Two frames a step: the row
+//      FFTs of two frames run together (4 rows), so a radix-4 stage has
+//      one butterfly a thread and a frame costs half the barriers.  The
+//      result, times the inverse twiddle, goes back in place of the rows
+//      it was read from, as scratch[f][ka][nb].
+//   3. inv_packed_pass2<float2, true>: the M1-point inverse FFTs, the
+//      valid half as sample pairs.
 //
-// Device-memory traffic a frame: 4p B of samples in, 2 x 32p B of
-// scratch round trips, 4p B out (72p B), against 104p B for the three
-// kernels (which also write and read X and Y).  The scratch round trips
-// remain; keeping them out needs a whole frame's FFT in one block.
+// One row pair a block (M2 threads, 32 at p = 512 to 256 at p = 65536)
+// gives C * M1/2 blocks: 256 at C = 8, p = 8192.  Device-memory traffic
+// a frame: 4p B of samples in, 2 x 16p B of scratch round trips, 4p B
+// out (40p B), against 72p B for the full-length design and 56p B for
+// the three packed frame kernels (which also write and read X and Y).
+// The scratch round trips remain; keeping them out needs a whole
+// frame's FFT in one block.
 //
-// Bins 0 and p take real Y, as the plain inverse does; the MAC on the
-// Hermitian half uses H[N-k] conjugated.  The sum runs over j ascending,
-// as in _mac_kernel.
+// Bins 0 and p take real X and Y, as the plain inverse does.  The sum
+// runs over j ascending, as in _mac_kernel.
 
-constexpr int kMidTile = 512;                        // row values a block
-constexpr int kMidElems = 2;                         // of them a thread
-constexpr int kMidThreads = kMidTile / kMidElems;
-// Frames a step: the row FFTs of two frames run together (2R rows), so a
-// radix-4 stage has a butterfly for every thread and a frame costs half
-// the barriers; the MAC still takes the frames one after the other.
-constexpr int kLogMidFrames = 1;
+constexpr int kLogMidFrames = 1;                     // frames a step: 2
 constexpr int kMidFrames = 1 << kLogMidFrames;
+constexpr int kMidMaxThreads = 256;                  // M2 at p = 65536
 
 template <int P>
-__global__ void FC_BOUNDS(kMidThreads, 2)
-fused_rows(float2* __restrict__ scratch, const float2* __restrict__ H,
-           int K, int p, int N1, int lN2, int lR) {
+__global__ void FC_BOUNDS(kMidMaxThreads, 2)
+fused_packed_rows(float2* __restrict__ scratch, const float2* __restrict__ H,
+                  int K, int lM1, int lM2) {
   FC_DYNAMIC_SMEM(float2, fc_smem);
-  const int lRs = lR + kLogMidFrames;                // rows of a step
-  const int N2 = 1 << lN2, R = 1 << lR, ld = row_stride(N2, lRs);
-  const int N = N1 * N2;
-  const int step = R * ld;                           // frame s at s * step
+  const int lRs = 1 + kLogMidFrames;                 // rows of a step
+  const int M1 = 1 << lM1, M2 = 1 << lM2, ld = row_stride(M2, lRs);
+  const int p = M1 * M2;
+  const int step = 2 * ld;                           // frame s at s * step
   float2* a = fc_smem;
   float2* b = a + kMidFrames * step;
   float2* twf = b + kMidFrames * step;
-  float2* twi = twf + N2;
+  float2* twi = twf + M2;
+  // this thread's own twiddles, out of its registers (which hold P = 8
+  // without spills only so): the inverse's for its two stores at
+  // own[t], own[M2 + t], the split's e^{-i pi k/p} at own[2 M2 + t]
+  float2* own = twi + M2;
   const int c = blockIdx.x;
-  const int k10 = blockIdx.y * R;
-  fill_twiddles(twf, lN2, -1.0f);
-  fill_twiddles(twi, lN2, 1.0f);
+  const int k1 = blockIdx.y;                         // slot 0: row k1,
+  const int k1p = packed_partner(k1, M1);            // slot 1: its partner
+  const int t = threadIdx.x;
+  fill_twiddles(twf, lM2, -1.0f);
+  fill_twiddles(twi, lM2, 1.0f);
 
-  // this thread's values: row r = e / N2, column q = e % N2 of the block
-  int sm[kMidElems], gm[kMidElems];   // shared / global offsets
-  bool real_bin[kMidElems];
-  float2 h[kMidElems][P], ring[kMidElems][P], tw[kMidElems];
+  // loads and stores: column t of both rows
+  const int gm0 = k1 * M2 + t, gm1 = k1p * M2 + t;
+  own[t] = Cx<float2>::twiddle(k1 * t, p, 1.0f);
+  own[M2 + t] = Cx<float2>::twiddle(k1p * t, p, 1.0f);
+  // the bin pair of this thread: bin k in slot sa, bin p - k in slot sb
+  // (pairing as in fwd_packed_pass2); `dc`: the thread of bins 0 / p
+  // (slot sa) and p/2 (slot sb)
+  int sa, sb, k;
+  if (k1 != 0) {
+    sa = t;
+    sb = ld + M2 - 1 - t;
+    k = k1 + M1 * t;
+  } else if (t < (M2 >> 1)) {                        // row 0 with itself
+    sa = t;
+    sb = t == 0 ? (M2 >> 1) : M2 - t;
+    k = M1 * t;
+  } else {                                           // row M1/2 with itself
+    const int cc = t - (M2 >> 1);
+    sa = ld + cc;
+    sb = ld + M2 - 1 - cc;
+    k = (M1 >> 1) + M1 * cc;
+  }
+  const bool dc = k == 0;
+  own[2 * M2 + t] = Cx<float2>::twiddle(k, 2 * p, -1.0f);
+  float2 ha[P], hb[P], ra[P], rb[P];
 #pragma unroll
-  for (int i = 0; i < kMidElems; ++i) {
-    const int e = threadIdx.x + i * kMidThreads;
-    const int r = e >> lN2;
-    const int q = e & (N2 - 1);
-    sm[i] = r * ld + q;
-    gm[i] = r * N2 + q;
-    const int kk = k10 + r + N1 * q;                   // the bin
-    real_bin[i] = (kk == 0 || kk == p);
-    const int src = (kk <= p) ? kk : N - kk;
-    const float conj = (kk <= p) ? 1.0f : -1.0f;
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const float2 v = H[(size_t)j * (p + 1) + src];
-      h[i][j] = make_float2(v.x, conj * v.y);
-      ring[i][j] = make_float2(0.0f, 0.0f);
-    }
-    tw[i] = Cx<float2>::twiddle((k10 + r) * q, N, 1.0f);
+  for (int j = 0; j < P; ++j) {
+    const float2* Hj = H + (size_t)j * (p + 1);
+    // bin 0 / p: the real parts of H[0] and H[p]; else H[k], H[p-k]
+    ha[j] = dc ? make_float2(Hj[0].x, Hj[p].x) : Hj[k];
+    hb[j] = Hj[dc ? (p >> 1) : p - k];
+    ra[j] = make_float2(0.0f, 0.0f);
+    rb[j] = make_float2(0.0f, 0.0f);
   }
 
-  // frame f of this block's rows at rows + f * N; frames past K are
+  // frame f of channel-stream c at rows + f * p; frames past K are
   // transformed as whatever the buffer holds and then left out
-  float2* rows = scratch + (size_t)c * K * N + (size_t)k10 * N2;
-  float2 next[kMidFrames][kMidElems];
+  float2* rows = scratch + (size_t)c * K * p;
+  float2 next[kMidFrames][2];
 #pragma unroll
   for (int s = 0; s < kMidFrames; ++s) {
-#pragma unroll
-    for (int i = 0; i < kMidElems; ++i)
-      next[s][i] = (s < K) ? rows[(size_t)s * N + gm[i]]
-                           : make_float2(0.0f, 0.0f);
+    next[s][0] = s < K ? rows[(size_t)s * p + gm0] : make_float2(0.f, 0.f);
+    next[s][1] = s < K ? rows[(size_t)s * p + gm1] : make_float2(0.f, 0.f);
   }
   for (int f = 0; f < K; f += kMidFrames) {
     __syncthreads();                 // the last step's reads of a, b done
 #pragma unroll
     for (int s = 0; s < kMidFrames; ++s) {
-#pragma unroll
-      for (int i = 0; i < kMidElems; ++i) a[s * step + sm[i]] = next[s][i];
+      a[s * step + t] = next[s][0];
+      a[s * step + ld + t] = next[s][1];
       const int fn = f + kMidFrames + s;             // prefetch
       if (fn < K) {
-#pragma unroll
-        for (int i = 0; i < kMidElems; ++i)
-          next[s][i] = rows[(size_t)fn * N + gm[i]];
+        next[s][0] = rows[(size_t)fn * p + gm0];
+        next[s][1] = rows[(size_t)fn * p + gm1];
       }
     }
-    float2* X = fft_rows(a, b, twf, lN2, lRs, ld);
+    float2* Z = fft_rows(a, b, twf, lM2, lRs, ld);
 #pragma unroll
     for (int s = 0; s < kMidFrames; ++s) {
       if (f + s >= K) break;
+      float2* Zs = Z + s * step;
+      const float2 zk = Zs[sa], zq = Zs[sb];
+      // the split: X[k] = E + w O, X[p-k] = conj(E - w O); bins 0 / p:
+      // (X[0], X[p]) = (Re + Im, Re - Im) of Z[0]; p/2: conj Z[p/2]
+      float2 xk, xq;
+      if (dc) {
+        xk = make_float2(zk.x + zk.y, zk.x - zk.y);
+        xq = make_float2(zq.x, -zq.y);
+      } else {
+        const float2 E = make_float2(0.5f * (zk.x + zq.x),
+                                     0.5f * (zk.y - zq.y));
+        const float2 wk = own[2 * M2 + t];
+        const float2 wO = cmul(wk, make_float2(0.5f * (zk.y + zq.y),
+                                               0.5f * (zq.x - zk.x)));
+        xk = cadd(E, wO);
+        xq = make_float2(E.x - wO.x, wO.y - E.y);
+      }
 #pragma unroll
-      for (int i = 0; i < kMidElems; ++i) {
-#pragma unroll
-        for (int j = P - 1; j > 0; --j) ring[i][j] = ring[i][j - 1];
-        ring[i][0] = X[s * step + sm[i]];
-        float2 acc = make_float2(0.0f, 0.0f);
+      for (int j = P - 1; j > 0; --j) {
+        ra[j] = ra[j - 1];
+        rb[j] = rb[j - 1];
+      }
+      ra[0] = xk;
+      rb[0] = xq;
+      float2 yk = make_float2(0.0f, 0.0f), yq = yk;
+      if (dc) {                      // real bins 0 and p, side by side
 #pragma unroll
         for (int j = 0; j < P; ++j) {
-          const float2 xv = ring[i][j];
-          const float2 hv = h[i][j];
-          acc.x += xv.x * hv.x - xv.y * hv.y;
-          acc.y += xv.x * hv.y + xv.y * hv.x;
+          yk.x += ra[j].x * ha[j].x;
+          yk.y += ra[j].y * ha[j].y;
         }
-        if (real_bin[i]) acc.y = 0.0f;
-        X[s * step + sm[i]] = acc;   // only this thread reads this slot
+      } else {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          yk.x += ra[j].x * ha[j].x - ra[j].y * ha[j].y;
+          yk.y += ra[j].x * ha[j].y + ra[j].y * ha[j].x;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        yq.x += rb[j].x * hb[j].x - rb[j].y * hb[j].y;
+        yq.y += rb[j].x * hb[j].y + rb[j].y * hb[j].x;
+      }
+      // the pre-combine: W[k] = A + i T B, W[p-k] = conj(A - i T B),
+      // T = conj w; bins 0 / p: (Y0 + Yp, Y0 - Yp); p/2: 2 conj Y[p/2]
+      if (dc) {
+        Zs[sa] = make_float2(yk.x + yk.y, yk.x - yk.y);
+        Zs[sb] = make_float2(2.0f * yq.x, -2.0f * yq.y);
+      } else {
+        const float2 A = make_float2(yk.x + yq.x, yk.y - yq.y);
+        const float2 wk = own[2 * M2 + t];
+        const float2 tB = cmul(make_float2(wk.x, -wk.y),
+                               make_float2(yk.x - yq.x, yk.y + yq.y));
+        Zs[sa] = make_float2(A.x - tB.y, A.y + tB.x);
+        Zs[sb] = make_float2(A.x + tB.y, tB.x - A.y);
       }
     }
-    const float2* Y = fft_rows(X, X == a ? b : a, twi, lN2, lRs, ld);
+    const float2* Yr = fft_rows(Z, Z == a ? b : a, twi, lM2, lRs, ld);
 #pragma unroll
     for (int s = 0; s < kMidFrames; ++s) {
       if (f + s >= K) break;
-      float2* out = rows + (size_t)(f + s) * N;
-#pragma unroll
-      for (int i = 0; i < kMidElems; ++i)
-        out[gm[i]] = cmul(Y[s * step + sm[i]], tw[i]);
+      float2* out = rows + (size_t)(f + s) * p;
+      out[gm0] = cmul(Yr[s * step + t], own[t]);
+      out[gm1] = cmul(Yr[s * step + ld + t], own[M2 + t]);
     }
   }
 }
@@ -711,16 +765,18 @@ int launch_fft(Kernel kernel, dim3 grid, int lR, int lM, cudaStream_t st,
   return launch_kernel(kernel, grid, kThreads, smem, st, args...);
 }
 
+// Launches the fused row pass: one row pair a block, M2 threads; in
+// shared memory two row buffers, two twiddle tables and three twiddles a
+// thread.
 template <int P>
-int launch_fused_rows(int C, int N1, int lN2, cudaStream_t st,
-                      float2* scratch, const float2* H, int K, int p) {
-  const int lR = ilog2(kMidTile) - lN2;
-  const int lRs = lR + kLogMidFrames;
+int launch_fused_rows(int C, int lM1, int lM2, cudaStream_t st,
+                      float2* scratch, const float2* H, int K) {
+  const int lRs = 1 + kLogMidFrames;
   const size_t smem =
-      (size_t)(2 * (1 << lRs) * row_stride(1 << lN2, lRs) + 2 * (1 << lN2)) *
+      (size_t)(2 * (1 << lRs) * row_stride(1 << lM2, lRs) + 5 * (1 << lM2)) *
       sizeof(float2);
-  return launch_kernel(fused_rows<P>, dim3(C, N1 >> lR), kMidThreads, smem,
-                       st, scratch, H, K, p, N1, lN2, lR);
+  return launch_kernel(fused_packed_rows<P>, dim3(C, 1 << (lM1 - 1)),
+                       1 << lM2, smem, st, scratch, H, K, lM1, lM2);
 }
 
 // The forward transform in T, packed: frames (C, K, p) or, kOsa,
@@ -748,25 +804,26 @@ int frames_rfft_impl(const void* in, void* scratch, void* X, int C, int K,
                        lM2, st, (const T*)scratch, (T*)X, lM1, lM2, lR2);
 }
 
-// The inverse in T: Y (C, K, p+1) -> y (C, K, p); scratch C*K*2p values.
+// The inverse in T, packed: Y (C, K, p+1) -> y (C, K, p); scratch C*K*p
+// values.  Grids of one dimension, a frame's blocks side by side.
 template <class T>
 int irfft_valid_impl(const void* Y, void* scratch, void* y, int C, int K,
                      int p, void* stream) {
   typedef typename Cx<T>::R Real;
   if (!pow2_partition(p) || C < 1 || K < 1) return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  const int lN = ilog2(2 * p);
-  const int lN1 = lN / 2, lN2 = lN - lN1;
-  const int N1 = 1 << lN1, N2 = 1 << lN2;
+  const int lM = ilog2(p);
+  const int lM1 = lM / 2, lM2 = lM - lM1;
   const int rows = C * K;
-  const int lR1 = fft_rows_log2<T>(lN2, lN1);
-  const int rc = launch_fft<T>(inv_pass1<T>, dim3(rows, N1 >> lR1), lR1,
-                               lN2, st, (const T*)Y, (T*)scratch, p, N1, lN2,
-                               lR1);
+  const int lR1 = fft_rows_log2<T>(lM2, lM1);
+  const int rc = launch_fft<T>(inv_packed_pass1<T>, dim3(rows << (lM1 - lR1)),
+                               lR1, lM2, st, (const T*)Y, (T*)scratch, lM1,
+                               lM2, lR1);
   if (rc != 0) return rc;
-  const int lR2 = fft_rows_log2<T>(lN1, lN2);
-  return launch_fft<T>(inv_pass2<T, false>, dim3(rows, N2 >> lR2), lR2, lN1,
-                       st, (const T*)scratch, (Real*)y, p, lN1, N2, lR2);
+  const int lR2 = fft_rows_log2<T>(lM1, lM2);
+  return launch_fft<T>(inv_packed_pass2<T, false>, dim3(rows << (lM2 - lR2)),
+                       lR2, lM1, st, (const T*)scratch, (Real*)y, lM1, lM2,
+                       lR2);
 }
 
 // Bins per MAC block of complex type T for P partitions (the ring and H
@@ -798,9 +855,8 @@ int frame_conv_mac_tile(int P) { return mac_tile<float2>(P); }
 int frame_conv_mac_tile_c128(int P) { return mac_tile<double2>(P); }
 
 // Each entry returns 0 on success, -1 for an unsupported shape, else the
-// CUDA error.  The transforms take a complex scratch of their complex
-// type: C*K*p values for the forward (frames_rfft, osa_rfft), C*K*2p for
-// the inverse; a larger one is fine.
+// CUDA error.  The transforms take a complex scratch of C*K*p values of
+// their complex type; a larger one is fine.
 int frames_rfft_f32(const void* frames, void* scratch, void* X, int C,
                     int K, int p, void* stream) {
   return frames_rfft_impl<float2, false>(frames, scratch, X, C, K, p,
@@ -840,37 +896,36 @@ int causal_mac_c128(const void* X, const void* H, void* Y, int C, int K,
 }
 
 // frames (C, K, p) f32, H (P, p+1) c64 -> y (C, K, p) f32, for
-// 1 <= P <= 8; scratch: C*K*2p complex64 values.
+// 1 <= P <= 8; scratch: C*K*p complex64 values.
 int fused_conv_f32(const void* frames, const void* H, void* scratch,
                    void* y, int C, int K, int p, int P, void* stream) {
   if (!pow2_partition(p) || C < 1 || K < 1 || P < 1 || P > 8) return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  const int lN = ilog2(2 * p);
-  const int lN1 = lN / 2, lN2 = lN - lN1;
-  const int N1 = 1 << lN1, N2 = 1 << lN2;
+  const int lM = ilog2(p);
+  const int lM1 = lM / 2, lM2 = lM - lM1;
   const int rows = C * K;
   float2* s = (float2*)scratch;
   const float2* h = (const float2*)H;
-  const int lR1 = fft_rows_log2<float2>(lN1, lN2);
-  int rc = launch_fft<float2>(fwd_pass1<float2>,
-                              dim3(rows, N2 >> lR1), lR1, lN1, st,
-                              (const float*)frames, s, K, p, lN1, N2, lR1);
+  const int lR1 = fft_rows_log2<float2>(lM1, lM2);
+  int rc = launch_fft<float2>(fwd_packed_pass1<float2, false>,
+                              dim3(rows, (1 << lM2) >> lR1), lR1, lM1, st,
+                              (const float*)frames, s, K, lM1, 1 << lM2, lR1);
   if (rc != 0) return rc;
   switch (P) {
-    case 1: rc = launch_fused_rows<1>(C, N1, lN2, st, s, h, K, p); break;
-    case 2: rc = launch_fused_rows<2>(C, N1, lN2, st, s, h, K, p); break;
-    case 3: rc = launch_fused_rows<3>(C, N1, lN2, st, s, h, K, p); break;
-    case 4: rc = launch_fused_rows<4>(C, N1, lN2, st, s, h, K, p); break;
-    case 5: rc = launch_fused_rows<5>(C, N1, lN2, st, s, h, K, p); break;
-    case 6: rc = launch_fused_rows<6>(C, N1, lN2, st, s, h, K, p); break;
-    case 7: rc = launch_fused_rows<7>(C, N1, lN2, st, s, h, K, p); break;
-    default: rc = launch_fused_rows<8>(C, N1, lN2, st, s, h, K, p); break;
+    case 1: rc = launch_fused_rows<1>(C, lM1, lM2, st, s, h, K); break;
+    case 2: rc = launch_fused_rows<2>(C, lM1, lM2, st, s, h, K); break;
+    case 3: rc = launch_fused_rows<3>(C, lM1, lM2, st, s, h, K); break;
+    case 4: rc = launch_fused_rows<4>(C, lM1, lM2, st, s, h, K); break;
+    case 5: rc = launch_fused_rows<5>(C, lM1, lM2, st, s, h, K); break;
+    case 6: rc = launch_fused_rows<6>(C, lM1, lM2, st, s, h, K); break;
+    case 7: rc = launch_fused_rows<7>(C, lM1, lM2, st, s, h, K); break;
+    default: rc = launch_fused_rows<8>(C, lM1, lM2, st, s, h, K); break;
   }
   if (rc != 0) return rc;
-  const int lR3 = fft_rows_log2<float2>(lN1, lN2);
-  return launch_fft<float2>(inv_pass2<float2, true>, dim3(rows, N2 >> lR3),
-                            lR3, lN1, st, (const float2*)s, (float*)y, p,
-                            lN1, N2, lR3);
+  const int lR3 = fft_rows_log2<float2>(lM1, lM2);
+  return launch_fft<float2>(inv_packed_pass2<float2, true>,
+                            dim3(rows << (lM2 - lR3)), lR3, lM1, st,
+                            (const float2*)s, (float*)y, lM1, lM2, lR3);
 }
 
 }  // extern "C"

@@ -53,12 +53,15 @@ causal_mac — replaces `_mac_kernel` (`causal_mac_grid_pallas`) and, in
     holds half the bins for the same P (`frame_conv_mac_tile_c128`).
 irfft_valid — replaces `_inv_kernel` (`irfft_valid_two_stage_pallas`)
     and, in f64, `_inv_dd_kernel`.
-    Still the full-length (N = 2p) complex transform of the Hermitian
-    spectrum: 512 KB of spectrum read (each bin of the upper half read
-    again, conjugated), 1 MB of scratch out and back in, 128 KB out per
-    frame; bound by bytes the same way.  Only the valid second half of
-    each frame is computed in the second pass and written.  The packed
-    half-length inverse, the forward's mirror, is left for later.
+    The forward's packing run backwards: the first pass combines bins k
+    and p-k into the p-point spectrum of the packed frame (sample pairs
+    as real and imaginary parts) and does the column FFTs, the second
+    does the row FFTs of only the valid second half of each frame and
+    writes it as sample pairs.  Per frame: 256 KB of spectrum read (each
+    bin read again as its partner's, from L2 when a frame's blocks run
+    together), 256 KB of complex scratch out and back in, 128 KB out
+    (against 1.6 MB for the full-length inverse it replaced); bound by
+    bytes the same way.
 """
 from __future__ import annotations
 
@@ -259,7 +262,7 @@ def irfft_valid(Y):
     _check_part(p)
     lib = load("frame_conv")
     y = torch.empty((C, K, p), dtype=_REAL_OF[Y.dtype], device=Y.device)
-    scratch = torch.empty((C * K * 2 * p,), dtype=Y.dtype, device=Y.device)
+    scratch = torch.empty((C * K * p,), dtype=Y.dtype, device=Y.device)
     with torch.cuda.device(Y.device):
         rc = getattr(lib, entry)(Y.data_ptr(), scratch.data_ptr(),
                                  y.data_ptr(), C, K, p, _stream(Y))

@@ -13,25 +13,27 @@ launch count:
   not take.
 - `launch_counts["fused_conv"]` grows by one at each kernel launch.
 
-Design (csrc/frame_conv.cu, at `fused_rows`): the forward transform's
-column FFTs as in `frames_rfft`, then one pass in which a block owns a
-group of rows of the four-step grid and walks the frames in order, two
-frames a step, doing the forward's second stage, the MAC against a
-register ring of its bins' last P spectra, and the inverse's first
-stage; then the inverse's valid-half pass.  The grouping works because a
-row of the forward's second stage over the full 2p-point spectrum is
-exactly a row of the inverse's first stage.
+Design (csrc/frame_conv.cu, at `fused_packed_rows`): every transform on
+the packed half-length grid (sample pairs as complex values, a p-point
+FFT for a 2p-point real frame).  The forward transform's column FFTs as
+in `frames_rfft`; then one pass in which a block owns a row of the
+four-step grid and its partner row and walks the frames in order, two
+frames a step, doing the forward's row FFTs, the split into the real
+frame's bins X[k] and X[p-k], the MAC on the p+1 bins against a register
+ring of each thread's bin pair's last P spectra, the inverse's
+pre-combine and its row FFTs; then the inverse's valid-half pass, which
+writes sample pairs.  The grouping works because a row of the forward's
+second stage is exactly a row of the inverse's first stage.
 
 What bounds it: per frame 4p bytes of samples in and 4p out are all the
-function must move, against ~2 x 2.5 (2p) log2(2p) + 8 P (p+1) f32
-operations, ~25 operations a byte at p = 8192, P = 8: above the card's
-f32 ridge (67 TFLOP/s over 3.35 TB/s = 20), so an ideal kernel is bound
-by its operations (0.070 ms at C = 8, K = 352).  This one takes ~1.4 ms
-there (H100 80GB HBM3, 700 W, chip_smoke.py): it still moves two scratch
-round trips (64p bytes a frame) through device memory, and its row pass
-takes about half of its time (`nuc3 --profile`); running two frames a
-step, which halves the barriers between the shared-memory FFT stages a
-frame, cut the kernel by 8-19%, so those barriers are much of the rest.
+function must move, against ~2 x (2.5 p log2 p + 10 p) + 8 P (p+1) f32
+operations (the packed transform and its split, twice, and the MAC),
+~19 operations a byte at p = 8192, P = 8: at the card's f32 ridge (67
+TFLOP/s over 3.35 TB/s = 20), so an ideal kernel is bound by its bytes
+(0.055 ms at C = 8, K = 352).  This one still moves two scratch round
+trips (32p bytes a frame, against 64p for the full-length design it
+replaced) through device memory, and its row pass waits on the barriers
+between the shared-memory FFT stages; times in PERF.md.
 """
 from __future__ import annotations
 
@@ -82,9 +84,12 @@ def fused_conv(frames, H):
     if not fused_conv_supported(p, P):
         raise ValueError(f"fused_conv: P={P} partitions; the kernel takes "
                          f"1 to {MAX_FUSED_PARTS}")
+    # the kernel reads each sample pair as one complex value
+    if frames.data_ptr() % 8:
+        frames = frames.clone()
     lib = load("frame_conv")
     y = torch.empty((C, K, p), dtype=torch.float32, device=frames.device)
-    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex64,
+    scratch = torch.empty((C * K * p,), dtype=torch.complex64,
                           device=frames.device)
     with torch.cuda.device(frames.device):
         rc = lib.fused_conv_f32(frames.data_ptr(), H.data_ptr(),

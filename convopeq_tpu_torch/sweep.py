@@ -15,7 +15,8 @@ stated beside the card's name and power limit.
   of 3 calls after a warm-up).
 - ab DIR: the entries AB_ENTRIES of this tree's
   convopeq_tpu_torch/csrc/frame_conv.cu (the f32 forward, osa_rfft, the
-  f64 forward, the c64 MAC, the f32 inverse, the fused kernel) against
+  f64 forward, the c64 MAC, the f32 and f64 inverses, the fused kernel)
+  against
   those of the tree at DIR, each on the same inputs in both builds: equal
   bit for bit or not, with max |after - before| / max |before|, and
   their times in the order DIR, this, this, DIR.
@@ -66,7 +67,7 @@ def buffers(frames):
     cdtype = COMPLEX_OF[frames.dtype]
     return (torch.empty((C, K, p + 1), dtype=cdtype, device=frames.device),
             torch.empty_like(frames),
-            torch.empty((C * K * 2 * p,), dtype=cdtype, device=frames.device))
+            torch.empty((C * K * p,), dtype=cdtype, device=frames.device))
 
 
 def transforms(lib, frames, bufs=None):
@@ -90,17 +91,28 @@ def transforms(lib, frames, bufs=None):
     return fwd, inv, X, y
 
 
-def rows(card):
+def variants(macro, values, tag):
+    """{value: bound library} of csrc/frame_conv.cu built with -Dmacro=value
+    for each value, one nvcc each, in parallel; prints the passes' ptxas
+    register lines."""
     base = _build.LIBRARIES["frame_conv"]
-    variants = {n: replace(base, name=f"frame_conv_rows{n}",
-                           flags=base.flags + (f"-DFC_F64_ROW_ELEMS={n}",))
-                for n in (1024, 2048, 4096)}
-    built = _build.build_all(variants)
-    libs = {n: _build.bind(variants[n], built[n][0]) for n in variants}
+    libs = {n: replace(base, name=f"frame_conv_{tag}{n}",
+                       flags=base.flags + (f"-D{macro}={n}",))
+            for n in values}
+    built = _build.build_all(libs)
     for n, (_, log) in built.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line and ("pass1" in line or "pass2" in line):
-                print(f"  rows {n} ptxas: {line.strip()}")
+            if "Compiling entry" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line and any(
+                    k in entry for k in ("pass1", "pass2", "rows")):
+                print(f"  {tag} {n} ptxas: {entry}: {line.strip()}")
+    return {n: _build.bind(libs[n], built[n][0]) for n in libs}
+
+
+def rows(card):
+    libs = variants("FC_F64_ROW_ELEMS", (1024, 2048, 4096), "rows")
     gen = torch.Generator(device="cuda").manual_seed(5)
     for C, K, p in ROW_SHAPES:
         frames = torch.randn((C, K, p), generator=gen, device="cuda",
@@ -149,7 +161,8 @@ def partition(card):
 
 
 AB_ENTRIES = ("frames_rfft_f32", "osa_rfft_f32", "frames_rfft_f64",
-              "causal_mac_c64", "irfft_valid_f32", "fused_conv_f32")
+              "causal_mac_c64", "irfft_valid_f32", "irfft_valid_f64",
+              "fused_conv_f32")
 
 
 def _ab_calls(lib, ins, C, K, p, P, fused_shape):
@@ -177,11 +190,19 @@ def _ab_calls(lib, ins, C, K, p, P, fused_shape):
     calls["causal_mac_c64"] = (lambda: _check(lib.causal_mac_c64(
         X.data_ptr(), H.data_ptr(), Y.data_ptr(), C, K, p + 1, P, st),
         "mac"), Y)
+    # 2p scratch values a frame for every transform: what the
+    # full-length ones (an older tree's) need
     y = torch.empty((C, K, p), device=dev)
     sc = torch.empty((C * K * 2 * p,), dtype=c64, device=dev)
     calls["irfft_valid_f32"] = (lambda: _check(lib.irfft_valid_f32(
         X.data_ptr(), sc.data_ptr(), y.data_ptr(), C, K, p, st),
         "inverse"), y)
+    X128 = ins["X128"]
+    y64 = torch.empty((C, K, p), dtype=torch.float64, device=dev)
+    sc64 = torch.empty((C * K * 2 * p,), dtype=c128, device=dev)
+    calls["irfft_valid_f64"] = (lambda: _check(lib.irfft_valid_f64(
+        X128.data_ptr(), sc64.data_ptr(), y64.data_ptr(), C, K, p, st),
+        "f64 inverse"), y64)
     Cf, Kf, pf, Pf = fused_shape
     ffr, Hf = ins["fused_frames"], ins["fused_H"]
     yf = torch.empty_like(ffr)
@@ -217,6 +238,7 @@ def ab(card, other: str):
            "fused_frames": torch.randn((Cf, Kf, pf), generator=gen,
                                        device="cuda"),
            "fused_H": cplx((Pf, pf + 1))}
+    ins["X128"] = ins["X"].to(torch.complex128)
     calls = {k: _ab_calls(lib, ins, C, K, p, P, fused_shape)
              for k, lib in libs.items()}
     outs = {}

@@ -1,9 +1,10 @@
 // Host emulation of convopeq_tpu_torch/csrc/frame_conv.cu, for checking
 // the kernels on a machine without a GPU.
 //
-// Each block runs with its blockDim.x threads (fused_rows keeps values in
-// per-thread registers and needs its real block size): each thread is a
-// coroutine (ucontext) with its own stack, the dynamic shared memory is
+// Each block runs with its blockDim.x threads (fused_packed_rows keeps
+// values in per-thread registers and needs its real block size): each
+// thread is a coroutine (ucontext) with its own stack, the dynamic shared
+// memory is
 // one buffer of the block, and __syncthreads() yields to a scheduler that
 // resumes the threads in turn, so every thread reaches a barrier before
 // any passes it.  It checks what the threads compute and where they meet,

@@ -8,14 +8,10 @@
   tests/frame_conv_host_emulation.cpp (every thread of a block a
   coroutine), against the plain versions: the f32 kernels at 2e-5 x max,
   the f64 kernels at 1e-12 x max against numpy f64 (the packed forward
-  bin by bin, in a scratch of exactly C*K*p values with a guard past
-  it), and osa_rfft as the f32 forward, bit for bit.
+  bin by bin; the packed forward and inverse each in a scratch of
+  exactly C*K*p values with a guard past it), and osa_rfft as the f32
+  forward, bit for bit.
 """
-import ctypes
-import shutil
-import subprocess
-from pathlib import Path
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +22,7 @@ from convopeq_tpu.ops import partitioned_conv as j_pc
 from convopeq_tpu_torch.ops import frame_conv_kernels as fk
 from convopeq_tpu_torch.ops import partitioned_conv as t_pc
 
-ROOT = Path(__file__).resolve().parent.parent
+import frame_conv_emulation as emu
 
 
 def _frames(rng, C, K, p, dtype=np.float32):
@@ -160,25 +156,7 @@ def test_uniform_partitioned_conv_f64_matches_jax(p, n, taps):
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """csrc/frame_conv.cu built for the host by the emulation shim."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no host C++ compiler for the kernel emulation")
-    out = tmp_path_factory.mktemp("emu") / "libframe_conv_emu.so"
-    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o",
-                    str(out), str(ROOT / "tests" /
-                                  "frame_conv_host_emulation.cpp")],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
-    P_, I_ = ctypes.c_void_p, ctypes.c_int
-    for name in ("frames_rfft_f32", "frames_rfft_f64", "osa_rfft_f32",
-                 "irfft_valid_f32", "irfft_valid_f64"):
-        getattr(lib, name).argtypes = [P_, P_, P_, I_, I_, I_, P_]
-    for name in ("causal_mac_c64", "causal_mac_c128"):
-        getattr(lib, name).argtypes = [P_, P_, P_, I_, I_, I_, I_, P_]
-    lib.frame_conv_mac_tile.argtypes = [I_]
-    lib.frame_conv_mac_tile_c128.argtypes = [I_]
-    return lib
+    return emu.build(tmp_path_factory)
 
 
 def _check_bins(X, ref, rel):
@@ -195,40 +173,55 @@ def _check_bins(X, ref, rel):
         f"Nyquist {err[p]:.3e}")
 
 
-def _forward_scratch(n, dtype):
-    """The forward's scratch of n complex values and a guard past it."""
-    s = torch.empty((n + 64,), dtype=dtype)
-    s[n:] = 12345.0
-    return s
+def _irfft_valid_np(Y):
+    """numpy's f64 valid half of irfft(Y, 2p), DC's and Nyquist's
+    imaginary parts dropped."""
+    p = Y.shape[-1] - 1
+    Yz = Y.astype(np.complex128)
+    Yz[..., 0] = Yz[..., 0].real
+    Yz[..., p] = Yz[..., p].real
+    return np.fft.irfft(Yz, n=2 * p, axis=-1)[..., p:]
 
 
-def _guard_intact(scratch, n):
-    return bool((scratch[n:] == 12345.0).all())
+def _check_inverse(emulated, entry, Y, rel):
+    """The packed inverse `entry` on Y (C, K, p+1) in a scratch of exactly
+    C*K*p values with a guard past it, against numpy's f64 irfft within
+    rel x max."""
+    C, K, p = Y.shape[0], Y.shape[1], Y.shape[2] - 1
+    Yt = torch.from_numpy(Y)
+    n = C * K * p
+    scratch = emu.guarded_scratch(n, Yt.dtype)
+    y = torch.empty((C, K, p), dtype=fk._REAL_OF[Yt.dtype])
+    assert getattr(emulated, entry)(Yt.data_ptr(), scratch.data_ptr(),
+                                    y.data_ptr(), C, K, p, None) == 0
+    assert emu.guard_intact(scratch, n)
+    ref = _irfft_valid_np(Y)
+    np.testing.assert_allclose(y.numpy(), ref, rtol=0,
+                               atol=rel * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("p,C,K", [(512, 2, 3), (2048, 1, 5), (4096, 1, 3),
-                                   (512, 1, 1), (65536, 1, 2)])
+                                   (512, 1, 1), (65536, 1, 2), (1024, 3, 2),
+                                   (16384, 1, 3)])
 def test_cuda_source_transforms_emulated(emulated, p, C, K):
-    """The packed forward in a scratch of C*K*p values, every bin against
-    numpy's f64 rfft; the inverse against the plain f64 inverse."""
+    """The packed forward and the packed inverse, each in a scratch of
+    C*K*p values with a guard past it, against numpy's f64 rfft (every
+    bin) and irfft; the inverse of random spectra and of real frames'."""
     rng = np.random.default_rng(p + C)
     fr = torch.from_numpy(_frames(rng, C, K, p))
     X = torch.empty((C, K, p + 1), dtype=torch.complex64)
     n = C * K * p
-    scratch = _forward_scratch(n, torch.complex64)
+    scratch = emu.guarded_scratch(n, torch.complex64)
     assert emulated.frames_rfft_f32(fr.data_ptr(), scratch.data_ptr(),
                                     X.data_ptr(), C, K, p, None) == 0
-    assert _guard_intact(scratch, n)
+    assert emu.guard_intact(scratch, n)
     _check_bins(X.numpy(), np.fft.rfft(_osa_np(fr.double().numpy()),
                                        axis=-1), 2e-5)
-    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex64)
-    Y = torch.from_numpy(_cplx(rng, (C, K, p + 1)))
-    y = torch.empty((C, K, p), dtype=torch.float32)
-    assert emulated.irfft_valid_f32(Y.data_ptr(), scratch.data_ptr(),
-                                    y.data_ptr(), C, K, p, None) == 0
-    ref_y = fk.irfft_valid_plain(Y.to(torch.complex128))
-    assert float((y - ref_y).abs().max()) <= 2e-5 * max(
-        1.0, float(ref_y.abs().max()))
+    _check_inverse(emulated, "irfft_valid_f32", _cplx(rng, (C, K, p + 1)),
+                   2e-5)
+    _check_inverse(emulated, "irfft_valid_f32",
+                   np.fft.rfft(_osa_np(fr.double().numpy()),
+                               axis=-1).astype(np.complex64), 2e-5)
 
 
 @pytest.mark.parametrize("C,K,P,B", [(2, 11, 4, 513), (1, 5, 9, 1025),
@@ -274,24 +267,16 @@ def test_cuda_source_f64_transforms_emulated(emulated, p, C, K):
     fr = _frames(rng, C, K, p, np.float64)
     X = torch.empty((C, K, p + 1), dtype=torch.complex128)
     n = C * K * p
-    scratch = _forward_scratch(n, torch.complex128)
+    scratch = emu.guarded_scratch(n, torch.complex128)
     frt = torch.from_numpy(fr)
     assert emulated.frames_rfft_f64(frt.data_ptr(), scratch.data_ptr(),
                                     X.data_ptr(), C, K, p, None) == 0
-    assert _guard_intact(scratch, n)
+    assert emu.guard_intact(scratch, n)
     _check_bins(X.numpy(), np.fft.rfft(_osa_np(fr), axis=-1), 1e-12)
-    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex128)
-    Y = _cplx(rng, (C, K, p + 1), np.complex128)
-    y = torch.empty((C, K, p), dtype=torch.float64)
-    Yt = torch.from_numpy(Y)
-    assert emulated.irfft_valid_f64(Yt.data_ptr(), scratch.data_ptr(),
-                                    y.data_ptr(), C, K, p, None) == 0
-    Yz = Y.copy()
-    Yz[..., 0] = Yz[..., 0].real
-    Yz[..., p] = Yz[..., p].real
-    ref_y = np.fft.irfft(Yz, n=2 * p, axis=-1)[..., p:]
-    np.testing.assert_allclose(y.numpy(), ref_y, rtol=0,
-                               atol=1e-12 * np.abs(ref_y).max())
+    _check_inverse(emulated, "irfft_valid_f64",
+                   _cplx(rng, (C, K, p + 1), np.complex128), 1e-12)
+    _check_inverse(emulated, "irfft_valid_f64",
+                   np.fft.rfft(_osa_np(fr), axis=-1), 1e-12)
 
 
 @pytest.mark.parametrize("C,K,P,B", [(2, 11, 4, 513), (1, 9, 64, 300),
@@ -323,10 +308,10 @@ def test_cuda_source_osa_rfft_emulated(emulated, p, C, K):
     X = torch.empty((C, K, p + 1), dtype=torch.complex64)
     Xf = torch.empty_like(X)
     n = C * K * p
-    scratch = _forward_scratch(n, torch.complex64)
+    scratch = emu.guarded_scratch(n, torch.complex64)
     assert emulated.osa_rfft_f32(osa.data_ptr(), scratch.data_ptr(),
                                  X.data_ptr(), C, K, p, None) == 0
-    assert _guard_intact(scratch, n)
+    assert emu.guard_intact(scratch, n)
     _check_bins(X.numpy(), np.fft.rfft(osa.double().numpy(), axis=-1), 2e-5)
     frt = torch.from_numpy(fr)
     assert emulated.frames_rfft_f32(frt.data_ptr(), scratch.data_ptr(),

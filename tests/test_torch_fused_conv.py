@@ -12,11 +12,6 @@
   coroutine), against the plain version in f64: atol 2e-5 x scale, the
   bound the frame kernels' emulation is held to.
 """
-import ctypes
-import shutil
-import subprocess
-from pathlib import Path
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,7 +22,7 @@ from convopeq_tpu_torch.ops import frame_conv_kernels as fk
 from convopeq_tpu_torch.ops import fused_conv_kernels as fc
 from convopeq_tpu_torch.ops import partitioned_conv as t_pc
 
-ROOT = Path(__file__).resolve().parent.parent
+import frame_conv_emulation as emu
 
 
 def _case(rng, P, C, K, p):
@@ -124,38 +119,32 @@ def test_partitioned_conv_routes_small_layers_to_fused(monkeypatch, P,
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """csrc/frame_conv.cu built for the host by the emulation shim."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no host C++ compiler for the kernel emulation")
-    out = tmp_path_factory.mktemp("emu") / "libframe_conv_emu.so"
-    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o",
-                    str(out), str(ROOT / "tests" /
-                                  "frame_conv_host_emulation.cpp")],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
-    P_, I_ = ctypes.c_void_p, ctypes.c_int
-    lib.fused_conv_f32.argtypes = [P_, P_, P_, P_, I_, I_, I_, I_, P_]
-    lib.fused_conv_f32.restype = I_
-    return lib
+    return emu.build(tmp_path_factory)
 
 
-# K < P and ragged K included; C = 1 and C = 2
+# K < P and ragged K included; C = 1 and C = 2; p = 16384 is fused2's
+# near layer; at 32768 and 65536 the row pass takes 256 threads a block
 @pytest.mark.parametrize("p,P,C,K", [(512, 1, 1, 3), (512, 5, 2, 3),
                                      (512, 8, 1, 11), (2048, 1, 2, 5),
                                      (2048, 5, 1, 13), (2048, 8, 2, 6),
-                                     (4096, 3, 1, 4)])
+                                     (4096, 3, 1, 4), (16384, 8, 1, 3),
+                                     (1024, 8, 2, 5), (32768, 2, 2, 2),
+                                     (65536, 8, 1, 3)])
 def test_cuda_source_fused_conv_emulated(emulated, p, P, C, K):
+    """The packed fused kernel in a scratch of exactly C*K*p values with a
+    guard past it."""
     rng = np.random.default_rng(p + 10 * P + K)
     fr = torch.from_numpy(rng.normal(size=(C, K, p)).astype(np.float32))
     H = torch.from_numpy((rng.normal(size=(P, p + 1))
                           + 1j * rng.normal(size=(P, p + 1))).astype(
                               np.complex64))
     y = torch.empty((C, K, p), dtype=torch.float32)
-    scratch = torch.empty((C * K * 2 * p,), dtype=torch.complex64)
+    n = C * K * p
+    scratch = emu.guarded_scratch(n, torch.complex64)
     assert emulated.fused_conv_f32(fr.data_ptr(), H.data_ptr(),
                                    scratch.data_ptr(), y.data_ptr(), C, K, p,
                                    P, None) == 0
+    assert emu.guard_intact(scratch, n)
     ref = fc.fused_conv_plain(fr.double(), H.to(torch.complex128))
     assert float((y - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
 
