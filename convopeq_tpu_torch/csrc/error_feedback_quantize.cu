@@ -5,58 +5,80 @@
 // fixed bit depth (convopeq_tpu/models/dither.py apply_dither).
 //
 // What it computes: per row r (stream x channel) and sample t, in order,
-//   psycho       tmp = (x*h + d) + fb;  q = rint(tmp/scale)*scale;
+//   psycho       tmp = (xh + d) + fb;  q = rint(tmp/scale)*scale;
 //                err = tmp - q;  shift err into the 12-tap history
-//   fixed        y = x*h - fb;  q = rint((clamp(y, -1, 1-scale) + d)
+//   fixed        y = xh - fb;  q = rint((clamp(y, -1, 1-scale) + d)
 //                /scale)*scale;  err = clamp(q - y, +-2 scale); shift
 //   fixed15      fixed, with q clamped to [-1, 1-scale] after rounding
-//   lattice      y = x*h + fb;  q as fixed15;  err = clamp(q - y, +-2
+//   lattice      y = xh + fb;  q as fixed15;  err = clamp(q - y, +-2
 //                scale) drives the 9-stage lattice advance with the
 //                per-stage clamp +-2 (LatticeNoiseShaper.h:229-295,
 //                defect included)
 //   lattice_fir  the same with the textbook analysis-ladder store
 //                (models/dither.py lattice_dither ladder="fir")
-// where fb = c0*s0 + c1*s1 + ... summed left to right, d is the TPDF term
-// formed as the JAX wrapper forms it (pallas_kernels.py:97-100), and
-// rint rounds half to even.  Every multiply and every add is rounded on
-// its own: the library is built with -fmad=false, because these
-// trajectories are chaotic at the ULP level and a contracted multiply-add
-// flips a rounding decision within a few hundred samples.  The kernel is
-// then bit-identical to its plain PyTorch version (one op per launch),
-// and its f64 build to the reference binary (built -ffp-contract=off).
+// where xh = x*headroom, fb = c0*s0 + c1*s1 + ... summed left to right, d
+// is the TPDF term formed as the JAX wrapper forms it
+// (pallas_kernels.py:97-100): ((u0 + u1) - 1)*scale, psycho's ((u0 - .5)
+// + (u1 - .5))*scale, and rint rounds half to even.  Every multiply and
+// every add is rounded on its own: the library is built with -fmad=false,
+// because these trajectories are chaotic at the ULP level and a
+// contracted multiply-add flips a rounding decision within a few hundred
+// samples.  The kernel is then bit-identical to its plain PyTorch version
+// (one op per launch, which forms xh and d up front as the copy warp
+// does), and its f64 build to the reference binary (built
+// -ffp-contract=off).
 //
-// Design: one thread per row, the shaper state and the coefficients in
-// registers (the coefficients arrive by value in the kernel's
-// arguments).  A block is one warp of 32 rows.  It stages [32 rows x 64
-// samples] tiles of x and of the uniforms through shared memory with
-// time-contiguous, coalesced cp.async loads, double-buffered so that the
-// next tile's loads are in flight during the sequential loop, and writes
-// q through a shared tile the same way.  x, u and q keep their (R, N) /
-// (R, N, 2) layouts: no transpose pass, no padding; the ragged last tile
-// is masked, so the state returned is the state after sample N.  Rows
-// are padded by one element in shared memory so that the 32 threads,
-// each reading its own row at the same t, hit 32 different banks.
+// What bounds it: each row is one dependency chain through the feedback
+// sum, the quantizer and the ladder, so N samples take N steps of that
+// chain whatever R is (rows are lanes of a warp: 32 of them cost one).
+// Device traffic (16 B a sample in f32: x, two uniforms, q) would take
+// ~1.2 ms at config6's shape (R = 512, N = 480,000); the chain's latency
+// takes tens of ms.  Measured on an H100 80GB HBM3 at 700 W (PERF.md;
+// `python -m convopeq_tpu_torch.sweep probe`): a dependent FADD, FMUL or
+// FMNMX is 4.1 cycles, FRND 17, DADD and DMUL 8.1, the f64 clamp
+// (compare and select) ~18, so the f32 lattice_fir step's 25 dependent
+// ops take >= 123 cycles (29.6 ms at config6's shape) and the f64 one's
+// >= 221.  The step fed from registers runs 148 (f32) and 279 (f64).
+// The earlier design (one warp a block, staging its own tiles row by
+// row between steps) ran ~500 and ~630: its staging code, ~20,000
+// cycles a tile of dependent address arithmetic, loops and barriers, sat
+// in series with the chain.  This design runs ~157 and ~311 cycles a
+// step (37.8 ms at config6's shape): the chain's own latency binds it.
 //
-// What bounds it (config6: R = 512 rows, N = 480,000 samples, f32,
-// lattice_fir): device traffic is 16 B a sample (x, two uniforms, q),
-// 3.9 GB, about 1.2 ms at 3.35 TB/s; the arithmetic is ~83 f32 ops a
-// sample, 20 GFLOP, 0.3 ms at 67 TFLOP/s.  But each row is one
-// dependency chain: the feedback sum, the quantizer and the ladder are
-// ~25-35 dependent f32 ops a step, so 480,000 steps take tens of ms
-// whatever R is, and only R / 32 = 16 of the card's 132 SMs hold a warp.
-// The chain, not memory, binds this kernel; shortening it would change
-// the summation order, which the bit-exact contract forbids.  Measured
-// on an H100 80GB HBM3 at 700 W: ~121 ms at that shape, ~252 ns a step,
-// the same with one warp as with 16 and several times the chain's
-// estimate (PERF.md).
+// Design: a block is two warps over 32 rows.
+// - The chain warp (warp 0) does only the recurrence: lane r holds row
+//   r's state in registers (the coefficients are constant-bank operands),
+//   takes xh and d from a shared stage in batches of kEfBatch steps (16-B
+//   vector loads, issued a batch ahead, from a row stride of an odd
+//   number of 16-B chunks so the 32 rows hit distinct banks), keeps the
+//   batch's q in registers and stores it with vector stores over the xh
+//   it replaces.  It waits on the stage's `full` mbarrier once a tile and
+//   arrives on its `empty` one; no block barrier, no global access and no
+//   address arithmetic but a pointer step a batch.
+// - The copy warp (warp 1) runs on another scheduler of the SM: it brings
+//   x and u into a ring of kEfStages stages with cp.async, forms xh and d
+//   in the stage (the same single-rounded values the plain version
+//   forms), arrives on `full`, and once the chain has released a stage
+//   writes its q out before refilling it.  For a whole tile of a call
+//   whose rows are 16-B aligned (every main path) this is straight-line
+//   code, each lane a 16-B chunk of 16 rows: ~600 independent
+//   instructions a tile against the chain's ~10,000 cycles.  The ragged
+//   last tile and unaligned calls go row by row (16-B copies where a
+//   span is aligned, values elsewhere), which is as slow as the earlier
+//   staging.
+// A tile is 256 B of a row (64 f32 or 32 f64 samples); the ragged last
+// tile and batch are masked, so the state returned is the state after
+// sample N.
 //
-// With EF_QUANTIZE_HOST_EMULATION defined only the arithmetic below (the
-// per-sample step, the per-tile loop of one row, the constants and the
-// mode dispatch) is compiled, for the host emulator
-// tests/quantize_host_emulation.cpp, built with g++ -ffp-contract=off.
+// With EF_QUANTIZE_HOST_EMULATION defined only the arithmetic (the step,
+// the copy warp's xh and d, the chain warp's batched loop over one row of
+// a stage), the tiling constants and the mode dispatch are compiled, for
+// the host emulator tests/quantize_host_emulation.cpp, built with g++
+// -ffp-contract=off.
 
 #ifndef EF_QUANTIZE_HOST_EMULATION
 #include <cuda_runtime.h>
+#include <stdint.h>
 #define EF_HD __host__ __device__ __forceinline__
 #else
 #define EF_HD inline
@@ -72,10 +94,19 @@ enum { EF_PSYCHO = 0, EF_FIXED = 1, EF_FIXED15 = 2, EF_LATTICE = 3,
        EF_LATTICE_FIR = 4 };
 
 constexpr int kEfMaxOrder = 16;
-constexpr int kEfRows = 32;             // rows a block: one warp
-constexpr int kEfTile = 64;             // samples a tile
-constexpr int kEfLdx = kEfTile + 1;     // shared row stride of x and q
-constexpr int kEfLdu = 2 * kEfTile + 1; // shared row stride of u
+constexpr int kEfRows = 32;    // rows a block: the chain warp's lanes
+constexpr int kEfBatch = 4;    // steps the chain warp loads and stores at once
+constexpr int kEfStages = 4;   // stages in the ring
+
+// A stage of T: for each of the 32 rows, xq (x, then xh, then q) and d
+// at a row stride of kLd, and the raw uniforms at kLdu.
+template <typename T>
+struct EfTile {
+  static constexpr int kSteps = 256 / (int)sizeof(T);       // 64 f32, 32 f64
+  static constexpr int kLd = kSteps + 16 / (int)sizeof(T);  // 17 chunks of 16 B
+  static constexpr int kLdu = 2 * kSteps;
+  static constexpr int kStage = kEfRows * (2 * kLd + kLdu);  // values a stage
+};
 
 template <typename T>
 struct EfConsts {
@@ -128,22 +159,30 @@ EF_HD T ef_clamp(T v, T lo, T hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// The copy warp's terms: xh = x*headroom and the dither term d.
+template <typename T>
+EF_HD T ef_xh(T x, const EfConsts<T>& k) { return x * k.headroom; }
+
+template <typename T, int MODE>
+EF_HD T ef_dither(T u0, T u1, const EfConsts<T>& k) {
+  if (MODE == EF_PSYCHO) return ((u0 - T(0.5)) + (u1 - T(0.5))) * k.scale;
+  return ((u0 + u1) - T(1)) * k.scale;
+}
+
 // One sample of one row: returns q, advances the state s in place.
 template <typename T, int MODE, int ORDER>
-EF_HD T ef_step(T xi, T u0, T u1, T (&s)[ORDER], const EfConsts<T>& k) {
+EF_HD T ef_step(T xh, T d, T (&s)[ORDER], const EfConsts<T>& k) {
   T fb = k.c[0] * s[0];
 #pragma unroll
   for (int i = 1; i < ORDER; ++i) fb = fb + k.c[i] * s[i];
   constexpr bool kLattice = MODE == EF_LATTICE || MODE == EF_LATTICE_FIR;
   T q, err;
   if (MODE == EF_PSYCHO) {
-    const T d = ((u0 - T(0.5)) + (u1 - T(0.5))) * k.scale;
-    const T tmp = (xi * k.headroom + d) + fb;
+    const T tmp = (xh + d) + fb;
     q = ef_rint(tmp * k.inv_scale) * k.scale;
     err = tmp - q;
   } else {
-    const T d = ((u0 + u1) - T(1)) * k.scale;
-    const T y = kLattice ? xi * k.headroom + fb : xi * k.headroom - fb;
+    const T y = kLattice ? xh + fb : xh - fb;
     q = ef_rint((ef_clamp(y, T(-1), k.hi) + d) * k.inv_scale) * k.scale;
     if (MODE != EF_FIXED) q = ef_clamp(q, T(-1), k.hi);
     err = ef_clamp(q - y, -k.err_lim, k.err_lim);
@@ -178,14 +217,102 @@ EF_HD T ef_step(T xi, T u0, T u1, T (&s)[ORDER], const EfConsts<T>& k) {
   return q;
 }
 
-// `steps` samples of one row from a tile: x at xs[t], the uniforms at
-// us[2t], us[2t+1]; q to qs[t].
+// 16 B of T at p (16-B aligned), loaded and stored as one vector on the
+// card
+template <typename T>
+struct EfVec {
+  T v[16 / sizeof(T)];
+};
+
+template <typename T>
+EF_HD EfVec<T> ef_ld16(const T* p) {
+  EfVec<T> r;
+#ifdef __CUDA_ARCH__
+  if constexpr (sizeof(T) == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    r.v[0] = f.x; r.v[1] = f.y; r.v[2] = f.z; r.v[3] = f.w;
+  } else {
+    const double2 f = *reinterpret_cast<const double2*>(p);
+    r.v[0] = f.x; r.v[1] = f.y;
+  }
+#else
+  for (int j = 0; j < (int)(16 / sizeof(T)); ++j) r.v[j] = p[j];
+#endif
+  return r;
+}
+
+template <typename T>
+EF_HD void ef_st16(T* p, const EfVec<T>& r) {
+#ifdef __CUDA_ARCH__
+  if constexpr (sizeof(T) == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(r.v[0], r.v[1], r.v[2],
+                                                r.v[3]);
+  else
+    *reinterpret_cast<double2*>(p) = make_double2(r.v[0], r.v[1]);
+#else
+  for (int j = 0; j < (int)(16 / sizeof(T)); ++j) p[j] = r.v[j];
+#endif
+}
+
+// kEfBatch values at p: one 16-B vector in f32, two in f64
+template <typename T>
+struct EfBatch {
+  T v[kEfBatch];
+};
+
+template <typename T>
+EF_HD EfBatch<T> ef_load_batch(const T* p) {
+  constexpr int V = 16 / (int)sizeof(T);
+  EfBatch<T> b;
+#pragma unroll
+  for (int h = 0; h < kEfBatch / V; ++h) {
+    const EfVec<T> w = ef_ld16(p + h * V);
+#pragma unroll
+    for (int j = 0; j < V; ++j) b.v[h * V + j] = w.v[j];
+  }
+  return b;
+}
+
+template <typename T>
+EF_HD void ef_store_batch(T* p, const EfBatch<T>& b) {
+  constexpr int V = 16 / (int)sizeof(T);
+#pragma unroll
+  for (int h = 0; h < kEfBatch / V; ++h) {
+    EfVec<T> w;
+#pragma unroll
+    for (int j = 0; j < V; ++j) w.v[j] = b.v[h * V + j];
+    ef_st16(p + h * V, w);
+  }
+}
+
+// The chain warp's work on one row of a stage: `steps` samples, xh at
+// xq[t] and d at d[t]; q replaces xh at xq[t].  Whole batches load a
+// batch ahead and store their q at once; the ragged rest runs a step at a
+// time.
 template <typename T, int MODE, int ORDER>
-EF_HD void ef_run_tile(const T* xs, const T* us, T* qs, int steps,
-                       T (&s)[ORDER], const EfConsts<T>& k) {
-#pragma unroll 4
-  for (int t = 0; t < steps; ++t)
-    qs[t] = ef_step<T, MODE, ORDER>(xs[t], us[2 * t], us[2 * t + 1], s, k);
+EF_HD void ef_run_tile(T* xq, const T* d, int steps, T (&s)[ORDER],
+                       const EfConsts<T>& k) {
+  const int nb = steps / kEfBatch;
+  EfBatch<T> xn{}, dn{};
+  if (nb > 0) {
+    xn = ef_load_batch(xq);
+    dn = ef_load_batch(d);
+  }
+#pragma unroll 1
+  for (int b = 0; b < nb; ++b) {
+    const EfBatch<T> xc = xn, dc = dn;
+    if (b + 1 < nb) {
+      xn = ef_load_batch(xq + (b + 1) * kEfBatch);
+      dn = ef_load_batch(d + (b + 1) * kEfBatch);
+    }
+    EfBatch<T> qb;
+#pragma unroll
+    for (int j = 0; j < kEfBatch; ++j)
+      qb.v[j] = ef_step<T, MODE, ORDER>(xc.v[j], dc.v[j], s, k);
+    ef_store_batch(xq + b * kEfBatch, qb);
+  }
+  for (int t = nb * kEfBatch; t < steps; ++t)
+    xq[t] = ef_step<T, MODE, ORDER>(xq[t], d[t], s, k);
 }
 
 // The (mode, order) pairs the kernel is built for: calls
@@ -241,93 +368,303 @@ struct EfArgs {
   int R, N;
 };
 
-template <typename T>
-__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
-  const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (sizeof(T) == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(saddr),
-                 "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(saddr),
-                 "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+// ------------------------------------------------ mbarriers and cp.async
+
+__device__ __forceinline__ unsigned ef_saddr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// Issue the loads of the tile at t0 (one commit group), coalesced: the
-// warp reads each row's samples with neighbouring threads on
-// neighbouring addresses.
-template <typename T>
-__device__ void ef_load_tile(const EfArgs<T>& a, int row0, int t0, T* sx,
-                             T* su) {
-  const int steps = min(kEfTile, a.N - t0);
-  const int rows = min(kEfRows, a.R - row0);
-  for (int r = 0; r < rows; ++r) {
-    const size_t off = (size_t)(row0 + r) * a.N + t0;
-    const T* xr = a.x + off;
-    const T* ur = a.u + 2 * off;
-    for (int j = threadIdx.x; j < steps; j += blockDim.x)
-      cp_async_elem(sx + r * kEfLdx + j, xr + j);
-    for (int j = threadIdx.x; j < 2 * steps; j += blockDim.x)
-      cp_async_elem(su + r * kEfLdu + j, ur + j);
-  }
-  cp_async_commit();
+__device__ __forceinline__ void ef_bar_init(unsigned long long* bar,
+                                            unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(ef_saddr(bar)),
+               "r"(count)
+               : "memory");
 }
+
+// one arrival of the calling thread (release: its earlier shared writes
+// are visible to a thread that sees the phase complete)
+__device__ __forceinline__ void ef_bar_arrive(unsigned long long* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(ef_saddr(bar))
+      : "memory");
+}
+
+// wait until the phase of parity `parity` has completed (acquire)
+__device__ __forceinline__ void ef_bar_wait(unsigned long long* bar,
+                                            unsigned parity) {
+  const unsigned addr = ef_saddr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+template <int BYTES>
+__device__ __forceinline__ void ef_cp_async(void* dst, const void* src) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     ef_saddr(dst)),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                     ef_saddr(dst)),
+                 "l"(src), "n"(BYTES)
+                 : "memory");
+}
+
+// ------------------------------------------------------------ copy warp
+
+// A stage's regions: xq (x, xh, then q), d and the raw uniforms.
+template <typename T>
+struct EfStage {
+  T* xq;
+  T* d;
+  T* u;
+  __device__ EfStage(T* ring, int tile) {
+    xq = ring + (tile % kEfStages) * EfTile<T>::kStage;
+    d = xq + kEfRows * EfTile<T>::kLd;
+    u = d + kEfRows * EfTile<T>::kLd;
+  }
+};
+
+// The copy warp's three jobs on a tile of `steps` samples at t0.  A whole
+// tile of a call whose rows are 16-B aligned takes straight-line code:
+// lane l owns the 16-B chunk l % 16 of x (and its two chunks of u, its
+// chunk of q) in the rows of parity l / 16, 16 rows a lane with no loop
+// overhead and every chunk independent.  Anything else (the ragged last
+// tile, a call with unaligned rows) goes row by row, lane by lane, with
+// 16-B copies where a row's span is aligned and value copies elsewhere.
+template <typename T>
+struct EfCopy {
+  static constexpr int V = 16 / (int)sizeof(T);  // values a chunk
+  const EfArgs<T>& a;
+  int lane, row0, rows;
+  bool aligned;  // every row's spans of x, u and q 16-B aligned
+
+  __device__ const T* x_at(int r, size_t t) const {
+    return a.x + (size_t)(row0 + r) * a.N + t;
+  }
+  __device__ const T* u_at(int r, size_t t) const {
+    return a.u + 2 * ((size_t)(row0 + r) * a.N + t);
+  }
+  __device__ T* q_at(int r, size_t t) const {
+    return a.q + (size_t)(row0 + r) * a.N + t;
+  }
+
+  __device__ void get(const EfStage<T>& st, size_t t0, int steps) const {
+    using Tl = EfTile<T>;
+    if (aligned && steps == Tl::kSteps) {
+      const int c = lane % 16, half = lane / 16;
+#pragma unroll
+      for (int i = 0; i < kEfRows / 2; ++i) {
+        const int r = 2 * i + half;
+        if (r < rows) {
+          const size_t t = t0 + (size_t)c * V;
+          ef_cp_async<16>(st.xq + r * Tl::kLd + c * V, x_at(r, t));
+          ef_cp_async<16>(st.u + r * Tl::kLdu + 2 * c * V, u_at(r, t));
+          ef_cp_async<16>(st.u + r * Tl::kLdu + 2 * c * V + V,
+                          u_at(r, t) + V);
+        }
+      }
+      return;
+    }
+    for (int r = 0; r < rows; ++r) {
+      get_span(st.xq + r * Tl::kLd, x_at(r, t0), steps);
+      get_span(st.u + r * Tl::kLdu, u_at(r, t0), 2 * steps);
+    }
+  }
+
+  // n values from global src to shared dst (16-B aligned)
+  __device__ void get_span(T* dst, const T* src, int n) const {
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      const int nv = n / V;
+      for (int c = lane; c < nv; c += 32)
+        ef_cp_async<16>(dst + c * V, src + c * V);
+      done = nv * V;
+    }
+    for (int j = done + lane; j < n; j += 32)
+      ef_cp_async<(int)sizeof(T)>(dst + j, src + j);
+  }
+
+  // xh = x*headroom in place and d beside it
+  template <int MODE>
+  __device__ void form(const EfStage<T>& st, int steps,
+                       const EfConsts<T>& k) const {
+    using Tl = EfTile<T>;
+    if (aligned && steps == Tl::kSteps) {
+      const int c = lane % 16, half = lane / 16;
+#pragma unroll 4
+      for (int i = 0; i < kEfRows / 2; ++i) {
+        const int r = 2 * i + half;
+        T* xr = st.xq + r * Tl::kLd + c * V;
+        const T* ur = st.u + r * Tl::kLdu + 2 * c * V;
+        EfVec<T> x = ef_ld16(xr), d;
+        const EfVec<T> u0 = ef_ld16(ur), u1 = ef_ld16(ur + V);
+        T uv[2 * V];  // the chunk's V pairs (u0, u1)
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          uv[j] = u0.v[j];
+          uv[V + j] = u1.v[j];
+        }
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          x.v[j] = ef_xh(x.v[j], k);
+          d.v[j] = ef_dither<T, MODE>(uv[2 * j], uv[2 * j + 1], k);
+        }
+        ef_st16(xr, x);
+        ef_st16(st.d + r * Tl::kLd + c * V, d);
+      }
+      return;
+    }
+    using Pair = typename std::conditional<sizeof(T) == 4, float2,
+                                           double2>::type;
+    for (int r = 0; r < rows; ++r) {
+      T* xr = st.xq + r * Tl::kLd;
+      const Pair* ur = reinterpret_cast<const Pair*>(st.u + r * Tl::kLdu);
+      for (int j = lane; j < steps; j += 32) {
+        const Pair up = ur[j];
+        xr[j] = ef_xh(xr[j], k);
+        st.d[r * Tl::kLd + j] = ef_dither<T, MODE>(up.x, up.y, k);
+      }
+    }
+  }
+
+  // q (in xq) out to global
+  __device__ void put(const EfStage<T>& st, size_t t0, int steps) const {
+    using Tl = EfTile<T>;
+    if (aligned && steps == Tl::kSteps) {
+      const int c = lane % 16, half = lane / 16;
+#pragma unroll
+      for (int i = 0; i < kEfRows / 2; ++i) {
+        const int r = 2 * i + half;
+        if (r < rows)
+          *reinterpret_cast<uint4*>(q_at(r, t0 + (size_t)c * V)) =
+              *reinterpret_cast<const uint4*>(st.xq + r * Tl::kLd + c * V);
+      }
+      return;
+    }
+    for (int r = 0; r < rows; ++r) {
+      T* dst = q_at(r, t0);
+      const T* src = st.xq + r * Tl::kLd;
+      int done = 0;
+      if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+        const int nv = steps / V;
+        for (int c = lane; c < nv; c += 32)
+          reinterpret_cast<uint4*>(dst)[c] =
+              reinterpret_cast<const uint4*>(src)[c];
+        done = nv * V;
+      }
+      for (int j = done + lane; j < steps; j += 32) dst[j] = src[j];
+    }
+  }
+};
+
+template <typename T, int MODE>
+__device__ void ef_copy_warp(const EfArgs<T>& a, const EfConsts<T>& k,
+                             T* ring, unsigned long long* full,
+                             unsigned long long* empty) {
+  using Tl = EfTile<T>;
+  auto ok16 = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const EfCopy<T> cp{a, (int)threadIdx.x - kEfRows,
+                     (int)blockIdx.x * kEfRows,
+                     min(kEfRows, a.R - (int)blockIdx.x * kEfRows),
+                     ok16(a.x) && ok16(a.u) && ok16(a.q) &&
+                         ((size_t)a.N * sizeof(T)) % 16 == 0};
+  const int ntiles = (a.N + Tl::kSteps - 1) / Tl::kSteps;
+  auto steps_of = [&](int tile) {
+    return min(Tl::kSteps, a.N - tile * Tl::kSteps);
+  };
+  for (int tile = 0; tile <= ntiles; ++tile) {
+    if (tile < ntiles) {
+      if (tile >= kEfStages) {  // the stage's last tile is done: q out
+        const int old = tile - kEfStages;
+        ef_bar_wait(&empty[tile % kEfStages], (tile / kEfStages - 1) & 1);
+        cp.put(EfStage<T>(ring, old), (size_t)old * Tl::kSteps,
+               steps_of(old));
+        __syncwarp();
+      }
+      cp.get(EfStage<T>(ring, tile), (size_t)tile * Tl::kSteps,
+             steps_of(tile));
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    if (tile == 0) continue;
+    // the previous tile's copies are complete: form xh and d in place
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncwarp();
+    cp.template form<MODE>(EfStage<T>(ring, tile - 1), steps_of(tile - 1),
+                           k);
+    ef_bar_arrive(&full[(tile - 1) % kEfStages]);
+  }
+  // the last stages' q, once the chain has released them
+  for (int tile = ntiles > kEfStages ? ntiles - kEfStages : 0; tile < ntiles;
+       ++tile) {
+    ef_bar_wait(&empty[tile % kEfStages], (tile / kEfStages) & 1);
+    cp.put(EfStage<T>(ring, tile), (size_t)tile * Tl::kSteps,
+           steps_of(tile));
+  }
+}
+
+// ----------------------------------------------------------- chain warp
 
 template <typename T, int MODE, int ORDER>
-__global__ void __launch_bounds__(kEfRows)
-    ef_quantize_kernel(EfArgs<T> a, EfConsts<T> k) {
-  extern __shared__ __align__(16) unsigned char ef_smem[];
-  T* const base = reinterpret_cast<T*>(ef_smem);
-  T* const sx0 = base;
-  T* const sx1 = sx0 + kEfRows * kEfLdx;
-  T* const su0 = sx1 + kEfRows * kEfLdx;
-  T* const su1 = su0 + kEfRows * kEfLdu;
-  T* const sq = su1 + kEfRows * kEfLdu;
-  const int row0 = blockIdx.x * kEfRows;
-  const int row = row0 + threadIdx.x;
+__device__ void ef_chain_warp(const EfArgs<T>& a, const EfConsts<T>& k,
+                              T* ring, unsigned long long* full,
+                              unsigned long long* empty) {
+  using Tl = EfTile<T>;
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x * kEfRows + lane;
   const bool active = row < a.R;
-
   T s[ORDER];
 #pragma unroll
   for (int i = 0; i < ORDER; ++i)
     s[i] = active ? a.state_in[(size_t)row * ORDER + i] : T(0);
-
-  const int ntiles = (a.N + kEfTile - 1) / kEfTile;
-  ef_load_tile(a, row0, 0, sx0, su0);
+  const int ntiles = (a.N + Tl::kSteps - 1) / Tl::kSteps;
   for (int tile = 0; tile < ntiles; ++tile) {
-    const bool odd = tile & 1;
-    const int t0 = tile * kEfTile;
-    if (tile + 1 < ntiles)
-      ef_load_tile(a, row0, t0 + kEfTile, odd ? sx0 : sx1, odd ? su0 : su1);
-    else
-      cp_async_commit();  // an empty group keeps the wait count uniform
-    cp_async_wait_one();
-    __syncthreads();
-    const int steps = min(kEfTile, a.N - t0);
-    if (active)
-      ef_run_tile<T, MODE, ORDER>(
-          (odd ? sx1 : sx0) + threadIdx.x * kEfLdx,
-          (odd ? su1 : su0) + threadIdx.x * kEfLdu, sq + threadIdx.x * kEfLdx,
-          steps, s, k);
-    __syncthreads();
-    const int rows = min(kEfRows, a.R - row0);
-    for (int r = 0; r < rows; ++r) {
-      T* qr = a.q + (size_t)(row0 + r) * a.N + t0;
-      for (int j = threadIdx.x; j < steps; j += blockDim.x)
-        qr[j] = sq[r * kEfLdx + j];
-    }
-    // the next iteration's barrier orders these reads of sq before the
-    // next tile's writes
+    const EfStage<T> st(ring, tile);
+    const int steps = min(Tl::kSteps, a.N - tile * Tl::kSteps);
+    ef_bar_wait(&full[tile % kEfStages], (tile / kEfStages) & 1);
+    ef_run_tile<T, MODE, ORDER>(st.xq + lane * Tl::kLd,
+                                st.d + lane * Tl::kLd, steps, s, k);
+    ef_bar_arrive(&empty[tile % kEfStages]);
   }
   if (active) {
 #pragma unroll
     for (int i = 0; i < ORDER; ++i) a.state_out[(size_t)row * ORDER + i] = s[i];
   }
+}
+
+constexpr int kEfBarBytes = 128;  // 2 kEfStages mbarriers, padded
+
+template <typename T, int MODE, int ORDER>
+__global__ void __launch_bounds__(2 * kEfRows)
+    ef_quantize_kernel(EfArgs<T> a, EfConsts<T> k) {
+  extern __shared__ __align__(16) unsigned char ef_smem[];
+  unsigned long long* const full =
+      reinterpret_cast<unsigned long long*>(ef_smem);
+  unsigned long long* const empty = full + kEfStages;
+  T* const ring = reinterpret_cast<T*>(ef_smem + kEfBarBytes);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kEfStages; ++i) {
+      ef_bar_init(&full[i], 32);   // the copy warp's lanes
+      ef_bar_init(&empty[i], 32);  // the chain warp's lanes
+    }
+  }
+  __syncthreads();  // the one block barrier: the mbarriers are set up
+  if (threadIdx.x < kEfRows)
+    ef_chain_warp<T, MODE, ORDER>(a, k, ring, full, empty);
+  else
+    ef_copy_warp<T, MODE>(a, k, ring, full, empty);
 }
 
 template <typename T>
@@ -339,7 +676,7 @@ int ef_launch(const void* x, const void* u, const void* state_in, void* q,
   const EfArgs<T> a{(const T*)x, (const T*)u, (const T*)state_in, (T*)q,
                     (T*)state_out, R, N};
   const size_t smem =
-      (size_t)kEfRows * (3 * kEfLdx + 2 * kEfLdu) * sizeof(T);
+      kEfBarBytes + (size_t)kEfStages * EfTile<T>::kStage * sizeof(T);
   return ef_dispatch(mode, order, [&](auto m, auto o) -> int {
     constexpr int M = decltype(m)::value;
     constexpr int O = decltype(o)::value;
@@ -348,8 +685,8 @@ int ef_launch(const void* x, const void* u, const void* state_in, void* q,
         ef_quantize_kernel<T, M, O>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    ef_quantize_kernel<T, M, O><<<(R + kEfRows - 1) / kEfRows, kEfRows, smem,
-                                  (cudaStream_t)stream>>>(a, k);
+    ef_quantize_kernel<T, M, O><<<(R + kEfRows - 1) / kEfRows, 2 * kEfRows,
+                                  smem, (cudaStream_t)stream>>>(a, k);
     return (int)cudaGetLastError();
   });
 }

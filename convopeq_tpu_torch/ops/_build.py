@@ -44,6 +44,7 @@ class Library:
     source: Path
     flags: tuple
     signatures: dict
+    deps: tuple = ()      # files the source includes (part of the key)
 
 
 _EFQ_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _DP, _I, _D, _D, _P]
@@ -87,6 +88,8 @@ def _nvcc() -> str:
 
 def library_path(lib: Library) -> Path:
     h = hashlib.sha256(lib.source.read_bytes())
+    for dep in lib.deps:
+        h.update(Path(dep).read_bytes())
     h.update(" ".join(lib.flags).encode())
     return BUILD_DIR / f"lib{lib.name}_{h.hexdigest()[:16]}.so"
 

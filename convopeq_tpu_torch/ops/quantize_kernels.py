@@ -24,9 +24,13 @@ term is formed as the JAX wrapper forms it (pallas_kernels.py:97-100).
 
 What bounds the kernel at config6 (R = 512, N = 480,000, f32,
 lattice_fir): 16 B of device traffic a sample (3.9 GB, ~1.2 ms at
-3.35 TB/s), but each row is one chain of ~25-35 dependent f32 ops a step,
-so the loop over time, not memory, sets its time: ~121 ms on an H100 80GB
-HBM3 at 700 W; see the source note.
+3.35 TB/s), but each row is one chain of 25 dependent f32 ops a step
+(>= 123 cycles at the card's latencies, 29.6 ms), so the loop over
+time, not memory, sets its time.  The earlier kernel lost ~340 cycles a
+step to the staging its one warp ran between steps (121 ms); the kernel
+now gives the chain a warp of its own, fed from shared memory by a copy
+warp on another scheduler of the SM: ~157 cycles a step, 37.8 ms on an
+H100 80GB HBM3 at 700 W (see the source note and PERF.md).
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
-"""Sweeps and A/B timings of the frame kernels on the card, each time
+"""Sweeps, A/B timings and probes of the kernels on the card, each time
 stated beside the card's name and power limit.
 
     python -m convopeq_tpu_torch.sweep rows         # f64 FFT row budget
     python -m convopeq_tpu_torch.sweep partition    # f64 headline partition
-    python -m convopeq_tpu_torch.sweep ab DIR       # kernels vs DIR's
+    python -m convopeq_tpu_torch.sweep ab DIR [frame_conv|quantizer]
+    python -m convopeq_tpu_torch.sweep probe [DIR]  # quantizer diagnosis
 
 - rows: csrc/frame_conv.cu built with -DFC_F64_ROW_ELEMS = 1024, 2048
   and 4096 (complex values per f64 FFT block), one nvcc each, in
@@ -13,17 +14,28 @@ stated beside the card's name and power limit.
 - partition: the folded headline in f64 at 64 streams x 60 s with one
   layer of p = 8192 .. 65536 (`partition=int`): realtime factor (median
   of 3 calls after a warm-up).
-- ab DIR: the entries AB_ENTRIES of this tree's
+- ab DIR [frame_conv|quantizer]: the entries AB_ENTRIES of this tree's
   convopeq_tpu_torch/csrc/frame_conv.cu (the f32 forward, osa_rfft, the
   f64 forward, the c64 MAC, the f32 and f64 inverses, the fused kernel)
-  against
-  those of the tree at DIR, each on the same inputs in both builds: equal
-  bit for bit or not, with max |after - before| / max |before|, and
-  their times in the order DIR, this, this, DIR.
+  against those of the tree at DIR, each on the same inputs in both
+  builds: equal bit for bit or not, with max |after - before| / max
+  |before|, and their times in the order DIR, this, this, DIR; then the
+  quantizer (csrc/error_feedback_quantize.cu) the same way at QUANT_AB,
+  lattice_fir at config6's shape in f32 and config5d32's in f64, q and
+  state bit for bit.  Both by default, or the one named.
+- probe [DIR]: the quantizer's diagnosis (csrc/ef_probe.cu): ptxas
+  registers and spills of every instance, its loops in the SASS (the
+  listings go to convopeq_tpu_torch/_build/sass/), the SM clock, cycles an
+  instruction of dependent chains, cycles a step of the step fed from
+  registers and of the chain warp's loop over a stage, and of the whole
+  kernel at one warp (this tree's, and DIR's beside it when given).
 """
 from __future__ import annotations
 
+import ctypes
+import shutil
 import statistics
+import subprocess
 import sys
 from dataclasses import replace
 from pathlib import Path
@@ -213,7 +225,14 @@ def _ab_calls(lib, ins, C, K, p, P, fused_shape):
     return calls
 
 
-def ab(card, other: str):
+def ab(card, other: str, which=("frame_conv", "quantizer")):
+    if "frame_conv" in which:
+        ab_frame_conv(card, other)
+    if "quantizer" in which:
+        ab_quantizer(card, other)
+
+
+def ab_frame_conv(card, other: str):
     base = _build.LIBRARIES["frame_conv"]
     sigs = {k: base.signatures[k] for k in AB_ENTRIES}
     source = Path(other).resolve() / "convopeq_tpu_torch" / "csrc" \
@@ -261,14 +280,317 @@ def ab(card, other: str):
           f"[{card}]")
 
 
+# the quantizer's A/B shapes: (name, dtype, R, N, bits, bank): config6's
+# (f32, 24 bits, its own bank) and config5d32's (f64, 32 bits, the 48k
+# factory bank), both lattice_fir
+QUANT_AB = (("f32 lattice_fir", torch.float32, 512, 480_000, 24, "config6"),
+            ("f64 lattice_fir", torch.float64, 128, 960_000, 32, "factory"))
+
+
+def ab_quantizer(card, other: str):
+    """The quantizer of this tree against the tree at `other`'s, at
+    QUANT_AB, on one seeded input: outputs and states bit for bit, and
+    the times in the order other, this, this, other."""
+    from . import parity
+    from .config6 import config6_bank
+    from .models import dither
+    base = _build.LIBRARIES["error_feedback_quantize"]
+    source = Path(other).resolve() / "convopeq_tpu_torch" / "csrc" \
+        / "error_feedback_quantize.cu"
+    trees = {"before": replace(base, name="error_feedback_quantize_before",
+                               source=source),
+             "after": base}
+    built = _build.build_all(trees)
+    libs = {k: _build.bind(trees[k], built[k][0]) for k in trees}
+    h = dither.K_OUTPUT_HEADROOM
+    for name, dt, R, N, bits, bank in QUANT_AB:
+        k9 = config6_bank() if bank == "config6" else \
+            parity.factory_bank(48000.0, 24, 0)
+        c = dither.lattice_coeffs(k9)
+        scale, _ = dither.quant_scales(bits)
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        x = torch.randn((R, N), generator=gen, device="cuda", dtype=dt) * 0.3
+        u = torch.rand((R, N, 2), generator=gen, device="cuda", dtype=dt)
+        s0 = (torch.rand((R, len(c)), generator=gen, device="cuda",
+                         dtype=dt) * 2 - 1) * (2 * scale)
+        outs = {k: _quantize(lib, x, u, c, scale, h, "lattice_fir", s0)
+                for k, lib in libs.items()}
+        torch.cuda.synchronize()
+        same = torch.equal(outs["before"][0], outs["after"][0]) and \
+            torch.equal(outs["before"][1], outs["after"][1])
+        del outs
+        times = {k: [] for k in libs}
+        for k in ("before", "after", "after", "before"):
+            times[k].append(round(time_ms(lambda: _quantize(
+                libs[k], x, u, c, scale, h, "lattice_fir", s0), reps=3), 3))
+        print(f"quantizer {name} R={R} N={N} {bits}-bit: q and state bit "
+              f"for bit equal to {other}'s {same}; ms, order before, after, "
+              f"after, before: {times} [{card}]", flush=True)
+        del x, u, s0
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ the quantizer probe
+
+PROBE_LIB = _build.Library(
+    "ef_probe", _build.LIBRARIES["error_feedback_quantize"].source.parent
+    / "ef_probe.cu", _build.LIBRARIES["error_feedback_quantize"].flags, {
+        "ef_probe_clock": [_build._P, _build._I],
+        "ef_probe_step_f32": [_build._P] * 3 + [_build._I] * 2
+        + [_build._DP, _build._I, _build._D, _build._D, _build._I],
+        "ef_probe_step_f64": [_build._P] * 3 + [_build._I] * 2
+        + [_build._DP, _build._I, _build._D, _build._D, _build._I],
+        "ef_probe_ops": [_build._P, _build._I],
+        "ef_probe_op_count": [],
+    }, deps=(_build.LIBRARIES["error_feedback_quantize"].source,))
+PROBE_OPS = ("FADD", "FMUL", "FMNMX.NAN", "FRND", "DADD", "DMUL", "DMNMX",
+             "FRND.F64", "LDS chase", "FMUL+clamp", "DMUL+clamp")
+# The dependent chain of one step, by mode (order): (adds and multiplies,
+# clamps, roundings) on the longest path from one step's err to the
+# next's.  psycho: c0*s0, 11 adds of the feedback sum, (xh + d) + fb,
+# /scale, rint, *scale, tmp - q.  fixed: c0*s0, ORDER-1 adds, y, the
+# clamp of y, + d, /scale, rint, *scale, q - y and its clamp (fixed15
+# also clamps q).  lattice: err through the 8 adds of the forward path,
+# c8*f8 + s8 and its clamp into s8, then c8*s8 and the last add of the
+# feedback sum, y and the tail as fixed15; lattice_fir the same with 7
+# forward adds (s8 takes stage 7's output).
+CHAIN_OPS = {"psycho": (16, 0, 1), "fixed": (9, 2, 1), "fixed15": (21, 3, 1),
+             "lattice": (17, 4, 1), "lattice_fir": (16, 4, 1)}
+SASS_DIR = _build.BUILD_DIR / "sass"
+
+
+def _tool(name):
+    found = shutil.which(name)
+    return found or str(Path(_build._nvcc()).parent / name)
+
+
+def _short(mangled):
+    """`ef_quantize_kernel<float, 4, 9>` and the like from a mangled name."""
+    try:
+        out = subprocess.run([_tool("cu++filt"), mangled], capture_output=True,
+                             text=True, check=True).stdout.strip()
+    except (OSError, RuntimeError, subprocess.CalledProcessError):
+        return mangled      # no CUDA toolkit here
+    for junk in ("(int)", "(anonymous namespace)::", "<unnamed>::"):
+        out = out.replace(junk, "")
+    return out.removeprefix("void ").split("(")[0]
+
+
+def ptxas_report(log):
+    """{kernel: 'N registers, stack, spills'} from nvcc -Xptxas=-v."""
+    rep, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = _short(line.split("'")[1])
+        elif entry and "bytes stack frame" in line:
+            rep[entry] = line.strip()
+        elif entry and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            rep[entry] = f"{regs} registers, {rep.get(entry, '')}"
+    return rep
+
+
+def sass_loops(path, out_name):
+    """cuobjdump -sass of the library at `path` into SASS_DIR/out_name;
+    returns {kernel: [loop, ...]} where each loop (a backward branch's
+    span of at least 24 instructions) is a dict of its instruction count
+    and its counts of the instructions named in `kinds`."""
+    text = subprocess.run([_tool("cuobjdump"), "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    SASS_DIR.mkdir(parents=True, exist_ok=True)
+    (SASS_DIR / out_name).write_text(text)
+    kinds = ("LDL", "STL", "LDS", "STS", "LDGSTS", "BAR", "FRND", "SYNCS",
+             "LDG", "STG", "FADD", "FMUL", "FMNMX", "DADD", "DMUL", "DSETP",
+             "FSEL", "MOV")
+    loops, fn, ins = {}, None, []
+
+    def flush():
+        if fn is None:
+            return
+        found = []
+        for i, (addr, op, args) in enumerate(ins):
+            if op.split(".")[0] != "BRA" or "0x" not in args:
+                continue
+            target = int(args.split("0x")[1].split()[0].rstrip(";"), 16)
+            if target >= addr:
+                continue
+            body = [o for a, o, _ in ins[:i + 1] if a >= target]
+            if len(body) >= 24:
+                found.append({"from": hex(target), "to": hex(addr),
+                              "n": len(body), **{
+                                  k: sum(o.split(".")[0] == k for o in body)
+                                  for k in kinds}})
+        loops[_short(fn)] = found
+    for line in text.splitlines():
+        if "Function :" in line:
+            flush()
+            fn, ins = line.split("Function :")[1].strip(), []
+            continue
+        line = line.strip()
+        if not line.startswith("/*") or "*/" not in line:
+            continue
+        head, _, rest = line.partition("*/")
+        try:
+            addr = int(head.strip("/* "), 16)
+        except ValueError:
+            continue
+        toks = rest.split("/*")[0].replace(";", " ").split()
+        if toks and toks[0].startswith("@"):
+            toks = toks[1:]
+        if toks:
+            ins.append((addr, toks[0], " ".join(toks[1:])))
+    flush()
+    return loops
+
+
+def _probe_coeffs():
+    from .config6 import SAMPLE_RATE, config6_bank
+    from .models import dither
+    k9 = dither.lattice_coeffs(config6_bank())
+    return {"psycho": dither.psycho_coeffs(SAMPLE_RATE, 24),
+            "fixed": dither.fixed4_coeffs(SAMPLE_RATE),
+            "fixed15": dither.fixed15_coeffs(SAMPLE_RATE),
+            "lattice": k9, "lattice_fir": k9}
+
+
+def probe(card, other=None):
+    """Step 1 of the quantizer's diagnosis; see the source note of
+    csrc/ef_probe.cu.  With `other`, that tree's quantizer is built and
+    timed beside this one's."""
+    from .models import dither
+    from .ops import quantize_kernels as qk
+    base = _build.LIBRARIES["error_feedback_quantize"]
+    libs = {"this": base, "probe": PROBE_LIB}
+    if other is not None:
+        libs["other"] = replace(base, name="error_feedback_quantize_other",
+                                source=Path(other).resolve()
+                                / "convopeq_tpu_torch" / "csrc"
+                                / "error_feedback_quantize.cu")
+    built = _build.build_all(libs)
+    for k, (path, log) in built.items():
+        wanted = ("ef_probe_step", "ef_probe_tile") if k == "probe" \
+            else ("ef_quantize_kernel",)
+        for kern, line in ptxas_report(log).items():
+            if any(n in kern for n in wanted):
+                print(f"ptxas {k}: {kern}: {line}")
+        for kern, found in sass_loops(path, f"{k}.sass").items():
+            if any(n in kern for n in wanted):
+                print(f"sass {k}: {kern}: loops {found}")
+    dll = {k: _build.bind(libs[k], built[k][0]) for k in libs}
+    p = dll["probe"]
+    dev = torch.device("cuda")
+
+    out = torch.zeros(16, dtype=torch.int64, device=dev)
+    _check(p.ef_probe_clock(out.data_ptr(), 2_000_000), "clock")
+    clk, ns = out[:2].tolist()
+    ghz = clk / ns
+    print(f"SM clock: {clk} cycles in {ns} ns = {ghz * 1e3:.1f} MHz "
+          f"[{card}]")
+
+    reps = 2000
+    _check(p.ef_probe_ops(out.data_ptr(), reps), "ops")
+    n_ops = p.ef_probe_op_count()
+    cyc = out[:n_ops].tolist()
+    per_op = {name: round(c / (16 * reps), 2) for name, c in
+              zip(PROBE_OPS, cyc)}
+    print(f"(c) cycles an instruction, dependent chains: {per_op} [{card}]")
+    lat = {"float32": (per_op["FADD"], per_op["FMUL+clamp"] - per_op["FMUL"],
+                       per_op["FRND"]),
+           "float64": (per_op["DADD"], per_op["DMUL+clamp"] - per_op["DMUL"],
+                       per_op["FRND.F64"])}
+    chain = {f"{m} {t}": round(sum(n * c for n, c in zip(CHAIN_OPS[m],
+                                                          lat[t])), 1)
+             for t in lat for m in CHAIN_OPS}
+    print(f"the chain's latency, cycles a step (CHAIN_OPS x (c)): {chain} "
+          f"[{card}]")
+    for name, R, N, m, t in (("config6", 512, 480_000, "lattice_fir",
+                              "float32"),
+                             ("config5d32", 128, 960_000, "lattice_fir",
+                              "float64")):
+        print(f"latency bound at {name}'s shape (N={N}, {m} {t}): "
+              f"{N * chain[f'{m} {t}'] / ghz * 1e-6:.3f} ms [{card}]")
+
+    coeffs = _probe_coeffs()
+    h = dither.K_OUTPUT_HEADROOM
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n_reg = 96_000
+    step_b, step_tile = {}, {}
+    for dt in (torch.float32, torch.float64):
+        scale = 2.0 ** -23 if dt == torch.float32 else 2.0 ** -31
+        ins = torch.rand((32, 8, 3), generator=gen, device=dev, dtype=dt)
+        ins[..., 0] = ins[..., 0] * 0.6 - 0.3
+        res = torch.empty(32, dtype=dt, device=dev)
+        fn = p.ef_probe_step_f32 if dt == torch.float32 else \
+            p.ef_probe_step_f64
+        for mode, c in coeffs.items():
+            carr = (ctypes.c_double * len(c))(*[float(v) for v in c])
+            for tile, got in ((0, step_b), (1, step_tile)):
+                _check(fn(ins.data_ptr(), res.data_ptr(), out.data_ptr(),
+                          n_reg, qk.MODES[mode], carr, len(c), scale, h,
+                          tile), "step")
+                got[f"{mode} {str(dt)[6:]}"] = round(int(out[0]) / n_reg, 1)
+    print(f"(b) cycles a step, the step fed from registers (one warp, "
+          f"N={n_reg}): {step_b} [{card}]")
+    print(f"(a') cycles a step, the chain warp's loop over one stage in "
+          f"shared memory, without the copy warp (one warp, N={n_reg}): "
+          f"{step_tile} [{card}]")
+
+    # (a) the kernel as it stands, timed with CUDA events, in SM cycles
+    R1, n_a = 32, 96_000
+    for k in [k for k in ("other", "this") if k in dll]:
+        lib = dll[k]
+        step_a = {}
+        for dt in (torch.float32, torch.float64):
+            scale = 2.0 ** -23 if dt == torch.float32 else 2.0 ** -31
+            x = torch.randn((R1, n_a), generator=gen, device=dev,
+                            dtype=dt) * 0.1
+            u = torch.rand((R1, n_a, 2), generator=gen, device=dev, dtype=dt)
+            for mode, c in coeffs.items():
+                ms = time_ms(lambda: _quantize(lib, x, u, c, scale, h, mode),
+                             reps=3)
+                step_a[f"{mode} {str(dt)[6:]}"] = round(
+                    ms * 1e6 * ghz / n_a, 1)
+        print(f"(a) {k} tree's kernel, cycles a step (CUDA events x SM "
+              f"clock; R={R1}, N={n_a}): {step_a} [{card}]")
+    print(f"nvidia-smi clocks.sm, clocks.max.sm: {_smi_clocks()} [{card}]")
+
+
+def _smi_clocks():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _quantize(lib, x, u, c, scale, h, mode, state=None):
+    """One launch of library `lib`'s quantizer entry (the signature of
+    ops/quantize_kernels.py), returning (q, state out)."""
+    from .ops import quantize_kernels as qk
+    R, N = x.shape
+    s_in = torch.zeros((R, len(c)), dtype=x.dtype, device=x.device) \
+        if state is None else state
+    q = torch.empty_like(x)
+    s_out = torch.empty_like(s_in)
+    fn = lib.error_feedback_quantize_f32 if x.dtype == torch.float32 \
+        else lib.error_feedback_quantize_f64
+    carr = (ctypes.c_double * len(c))(*[float(v) for v in c])
+    _check(fn(x.data_ptr(), u.data_ptr(), s_in.data_ptr(), q.data_ptr(),
+              s_out.data_ptr(), R, N, qk.MODES[mode], carr, len(c),
+              float(scale), float(h),
+              torch.cuda.current_stream(x.device).cuda_stream), "quantizer")
+    return q, s_out
+
+
 def main(argv):
     card = card_description()
     if argv[:1] == ["rows"]:
         rows(card)
     elif argv[:1] == ["partition"]:
         partition(card)
-    elif argv[:1] == ["ab"] and len(argv) == 2:
-        ab(card, argv[1])
+    elif argv[:1] == ["ab"] and len(argv) in (2, 3):
+        ab(card, argv[1], argv[2:] or ("frame_conv", "quantizer"))
+    elif argv[:1] == ["probe"] and len(argv) <= 2:
+        probe(card, argv[1] if len(argv) == 2 else None)
     else:
         raise SystemExit(__doc__)
 

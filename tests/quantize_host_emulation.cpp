@@ -1,13 +1,18 @@
 // Host emulation of convopeq_tpu_torch/csrc/error_feedback_quantize.cu,
 // for checking the quantizer's arithmetic on a machine without a GPU.
 //
-// It compiles the source's per-sample step, its per-tile loop of one row,
-// its constants and its mode dispatch (EF_QUANTIZE_HOST_EMULATION), and
-// drives them as the kernel does: each row walks the signal in tiles of
-// kEfTile samples laid out as in shared memory, with the state carried in
-// an array from tile to tile.  It does not check the kernel's staging of
-// tiles, which runs only on the card.  Build with contraction off, as the
-// kernel is built with -fmad=false (one command):
+// It compiles the source's per-sample step, the copy warp's terms (xh and
+// the dither term d), the chain warp's batched loop over one row of a
+// stage, the tiling constants and the mode dispatch
+// (EF_QUANTIZE_HOST_EMULATION), and drives them as the kernel does: each
+// row walks the signal in tiles of EfTile<T>::kSteps samples; for each
+// tile the copy warp's terms fill a stage row of kLd values (x becomes xh
+// in place, d beside it), the chain's loop runs whole batches of kEfBatch
+// steps and then the ragged rest, and q is read back from where xh was,
+// with the state carried in registers from tile to tile.  It does not
+// check the kernel's copies, mbarriers or warp roles, which run only on
+// the card.  Build with contraction off, as the kernel is built with
+// -fmad=false (one command):
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC
 //       -o libquantize_emu.so tests/quantize_host_emulation.cpp
 #include <algorithm>
@@ -22,21 +27,24 @@ template <typename T>
 int emu_run(const T* x, const T* u, const T* state_in, T* q, T* state_out,
             int R, int N, int mode, const double* coeffs, int order,
             double scale, double headroom) {
+  using Tl = EfTile<T>;
   const EfConsts<T> k = ef_consts<T>(coeffs, order, scale, headroom);
   return ef_dispatch(mode, order, [&](auto m, auto o) -> int {
     constexpr int M = decltype(m)::value;
     constexpr int O = decltype(o)::value;
-    std::vector<T> xs(kEfLdx), us(kEfLdu), qs(kEfLdx);
+    std::vector<T> xq(Tl::kLd), d(Tl::kLd);
     for (int r = 0; r < R; ++r) {
       T s[O];
       for (int i = 0; i < O; ++i) s[i] = state_in[(size_t)r * O + i];
-      for (int t0 = 0; t0 < N; t0 += kEfTile) {
-        const int steps = std::min(kEfTile, N - t0);
+      for (int t0 = 0; t0 < N; t0 += Tl::kSteps) {
+        const int steps = std::min(Tl::kSteps, N - t0);
         const size_t off = (size_t)r * N + t0;
-        std::copy(x + off, x + off + steps, xs.begin());
-        std::copy(u + 2 * off, u + 2 * (off + steps), us.begin());
-        ef_run_tile<T, M, O>(xs.data(), us.data(), qs.data(), steps, s, k);
-        std::copy(qs.begin(), qs.begin() + steps, q + off);
+        for (int j = 0; j < steps; ++j) {
+          xq[j] = ef_xh(x[off + j], k);
+          d[j] = ef_dither<T, M>(u[2 * (off + j)], u[2 * (off + j) + 1], k);
+        }
+        ef_run_tile<T, M, O>(xq.data(), d.data(), steps, s, k);
+        std::copy(xq.begin(), xq.begin() + steps, q + off);
       }
       for (int i = 0; i < O; ++i) state_out[(size_t)r * O + i] = s[i];
     }
@@ -48,7 +56,12 @@ int emu_run(const T* x, const T* u, const T* state_in, T* q, T* state_out,
 
 extern "C" {
 
-int emu_tile() { return kEfTile; }
+// samples a tile for values of `itemsize` bytes (4 or 8)
+int emu_tile(int itemsize) {
+  return itemsize == 4 ? EfTile<float>::kSteps : EfTile<double>::kSteps;
+}
+
+int emu_batch() { return kEfBatch; }
 
 int emu_supported(int mode, int order) {
   return ef_dispatch(mode, order, [](auto, auto) { return 1; }) == 1;

@@ -28,10 +28,13 @@ convopeq_tpu and against the reference binary.
     a rounding decision, so q is held to the grid and to a bounded
     divergence (at most 4 LSB).
 - apply_dither on the CPU against the JAX one in f64.
-- The CUDA source's per-sample arithmetic, compiled for the host with
-  g++ -ffp-contract=off by tests/quantize_host_emulation.cpp, against the
-  plain version bit for bit in all five modes, f32 and f64, with the
-  state carried across tile boundaries.
+- The CUDA source's arithmetic (the step, the copy warp's terms and the
+  chain warp's batched loop over a stage), compiled for the host with
+  g++ -ffp-contract=off by tests/quantize_host_emulation.cpp and driven
+  in tiles and batches as the kernel drives it, against the plain version
+  bit for bit in all five modes, f32 and f64: one sample, fewer samples
+  than a batch, one past a tile, three tiles and a ragged batch, and
+  calls split inside a batch that carry the state.
 """
 import ctypes
 import json
@@ -383,6 +386,7 @@ def emulated(tmp_path_factory):
     lib.emu_quantize_f32.argtypes = args
     lib.emu_quantize_f64.argtypes = args
     lib.emu_supported.argtypes = [I_, I_]
+    lib.emu_tile.argtypes = [I_]
     return lib
 
 
@@ -406,28 +410,51 @@ _EMU_COEFFS = {"psycho": td.psycho_coeffs(384000.0, 24),
                "lattice_fir": td.lattice_coeffs(K_TEST)}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("mode", list(qk.MODES))
-def test_cuda_source_quantizer_emulated(emulated, mode, dtype):
-    rng = np.random.default_rng(qk.MODES[mode])
+def _emulated_against_plain(lib, mode, dtype, n, cut, seed):
+    """The emulated kernel on (3, n) against the plain version at 16 and
+    24 bits, whole and split at `cut` (the split carrying the state)."""
+    rng = np.random.default_rng(seed)
     c = _EMU_COEFFS[mode]
-    n = 3 * emulated.emu_tile() + 8            # three tiles and a ragged one
     x = _t(rng.normal(size=(3, n)) * 0.4).to(dtype)
     u = _t(rng.random(size=(3, n, 2))).to(dtype)
     for bits in (16, 24):
         scale = 2.0 ** -(bits - 1)
         s0 = _t((rng.random(size=(3, len(c))) * 2 - 1) * 2 * scale).to(dtype)
-        q, s = _emulate(emulated, x, u, c, scale, mode, s0)
+        q, s = _emulate(lib, x, u, c, scale, mode, s0)
         qp, sp = qk.error_feedback_quantize_plain(x, u, c, scale, H, mode, s0)
         assert torch.equal(q, qp) and torch.equal(s, sp)
-        # split inside a tile: the state carried over is the whole call's
-        cut = emulated.emu_tile() + 5
-        q1, s1 = _emulate(emulated, x[:, :cut].contiguous(),
+        if not 0 < cut < n:
+            continue
+        q1, s1 = _emulate(lib, x[:, :cut].contiguous(),
                           u[:, :cut].contiguous(), c, scale, mode, s0)
-        q2, s2 = _emulate(emulated, x[:, cut:].contiguous(),
+        q2, s2 = _emulate(lib, x[:, cut:].contiguous(),
                           u[:, cut:].contiguous(), c, scale, mode, s1)
         assert torch.equal(torch.cat([q1, q2], dim=1), q)
         assert torch.equal(s2, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", list(qk.MODES))
+def test_cuda_source_quantizer_emulated(emulated, mode, dtype):
+    tile = emulated.emu_tile(dtype.itemsize)
+    batch = emulated.emu_batch()
+    # three tiles, then a ragged tile that ends in a ragged batch; split
+    # inside a batch of the second tile
+    _emulated_against_plain(emulated, mode, dtype, 3 * tile + 2 * batch + 3,
+                            tile + batch + 1, qk.MODES[mode])
+
+
+@pytest.mark.parametrize("edge", ["one sample", "below a batch",
+                                  "one past a tile"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", list(qk.MODES))
+def test_cuda_source_quantizer_emulated_edges(emulated, mode, dtype, edge):
+    tile = emulated.emu_tile(dtype.itemsize)
+    batch = emulated.emu_batch()
+    n, cut = {"one sample": (1, 0), "below a batch": (batch - 1, 1),
+              "one past a tile": (tile + 1, tile - batch + 2)}[edge]
+    _emulated_against_plain(emulated, mode, dtype, n, cut,
+                            10 + qk.MODES[mode])
 
 
 def test_cuda_source_rejects_unsupported_modes_emulated(emulated):
