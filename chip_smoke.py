@@ -10,7 +10,8 @@
    the headline shapes (C = 8 channel-streams, K = 88 frames, p = 32768,
    P = 33, f32); max |diff| <= 2e-5 x max |plain| (x max(1, .) for the
    inverse), and the kernel's, the plain version's and the library call's
-   times (CUDA events, median of 7 after warm-up); then the device time
+   times (CUDA events, median of 7 after warm-up; the MAC's library call
+   is `mac_library`, a grouped complex conv1d); then the device time
    of each pass of frames_rfft and irfft_valid in one call
    (torch.profiler, by kernel name), each beside the bytes it reads and
    writes and the rate that makes.
@@ -187,6 +188,18 @@ def bound(nbytes, ops, ops_s=F32_OPS_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def mac_library(X, H):
+    """causal_mac's function as one PyTorch call, the MAC rows' library
+    yardstick (used nowhere in the port): a grouped complex conv1d over
+    the frame axis, one group a bin, H flipped so that the
+    cross-correlation runs j ascending back from frame f.  X (C, K, B),
+    H (P, B) -> Y (C, K, B)."""
+    P, K = H.shape[0], X.shape[1]
+    return torch.nn.functional.conv1d(
+        X.transpose(1, 2), H.flip(0).T.unsqueeze(1), padding=P - 1,
+        groups=X.shape[2])[..., :K].transpose(1, 2)
+
+
 def phase_environment():
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is False")
@@ -247,7 +260,8 @@ def phase_kernels(card, dtype=torch.float32):
          lambda: torch.fft.rfft(osa, dim=-1),
          bound(sig_bytes + spec_bytes, fft_ops, rate)),
         (names[1], lambda: fk.causal_mac(X_plain, H),
-         lambda: fk.causal_mac_plain(X_plain, H), Y_plain, None,
+         lambda: fk.causal_mac_plain(X_plain, H), Y_plain,
+         lambda: mac_library(X_plain, H),
          bound(2 * spec_bytes + NPARTS * B * 2 * item, mac_ops, rate)),
         (names[2], lambda: fk.irfft_valid(Y_plain),
          lambda: fk.irfft_valid_plain(Y_plain), y_plain,

@@ -49,10 +49,11 @@
 // 1, one row pass (split, MAC, combine) and the inverse's pass 2.  Half
 // the butterflies and half the scratch of a full-length complex FFT.
 //
-// Every kernel but fused_packed_rows loops over its work with a stride of
-// blockDim.x, so its result does not depend on the block size it is
-// launched with; fused_packed_rows keeps a bin pair a thread in registers
-// and needs its block of M2 threads.  With FRAME_CONV_HOST_EMULATION
+// Every kernel but fused_packed_rows and causal_mac_kernel loops over its
+// work with a stride of blockDim.x, so its result does not depend on the
+// block size it is launched with; fused_packed_rows keeps a bin pair a
+// thread in registers and needs its block of M2 threads, causal_mac_kernel
+// a warp a channel (32 G threads, mac_block).  With FRAME_CONV_HOST_EMULATION
 // defined, FC_LAUNCH, FC_DYNAMIC_SMEM and the CUDA names used here come
 // from the host emulator tests/frame_conv_host_emulation.cpp, which runs
 // every thread of a block as a coroutine that yields at each barrier.
@@ -474,45 +475,138 @@ __global__ void inv_packed_pass2(const T* __restrict__ scratch,
 }
 
 // ---- causal frame MAC: Y[c,f,b] = sum_{j<P, j<=f} X[c,f-j,b] H[j,b] ---
-// Block (c, tile of bt bins); each bin walks the frames in order, keeping
-// the last P frame values of its own bin in a shared-memory ring and its
-// P partition values beside them.  No bin reads another bin's slots, so
-// no barrier is needed.  j ascends from 0, as in the TPU kernels.
-template <class T>
-__global__ void causal_mac_kernel(const T* __restrict__ X,
-                                  const T* __restrict__ H,
-                                  T* __restrict__ Yout, int K, int B, int P,
-                                  int bt) {
+// Replaces _mac_kernel (causal_mac_grid_pallas) in c64 and _dd_mac_kernel
+// in c128.  A thread owns bin b of channel c and walks the K frames of c
+// in tiles of kMacFrames (TF) output frames, with TF accumulators in
+// registers and the window X[f0-j .. f0-j+TF-1] of its bin in TF
+// registers: going from j to j+1 the window slides down one frame, so
+// one shared load of X (the ring) and one of H serve TF complex
+// multiply-adds, and TF independent sums keep the FP pipe fed.  The j
+// loop is unrolled by TF: frame f0-j enters window slot (-j) mod TF and
+// output t reads slot (t-j) mod TF (f0 a multiple of TF), each a fixed
+// register.
+//
+// Block: G warps (mac_block), one channel each, lanes on 32 consecutive
+// bins (coalesced 256 B / 512 B rows).  H[:, bins] is staged once in
+// shared memory for all G channels; each thread keeps the last P-1
+// frames of its bin in a shared-memory ring column of its own (slot f mod
+// (P-1), zeroed first, so frames before 0 read as zero), written with a
+// tile's frames after the tile's j loop has read the older ones.  No
+// thread reads another's ring slots: one barrier, after H.  The next
+// tile's X is loaded into registers while a tile runs.
+//
+// Shared memory: (P + G (P-1)) x 32 values; at G = 1 it takes P <= 454
+// (c64) and P <= 227 (c128), as one block of 2P x 32 values did.  The sum
+// of each output runs over j ascending with the expression of the TPU
+// kernels, rounded as the ring MAC it replaced rounded it (mac_step);
+// terms of frames before 0 add exact zeros (j > f, early tiles).
+constexpr int kMacFrames = 8;                  // TF: output frames a tile
+constexpr int kMacMaxWarps = 8;                // channels a block, at most
+constexpr int kSmemPerSM = 233472;             // 228 KB an SM
+constexpr int kSmemPerBlockReserved = 1024;
+
+// acc += x h, rounded as nvcc contracted `acc.x += x.x*h.x - x.y*h.y;
+// acc.y += x.x*h.y + x.y*h.x` in the ring MAC this kernel replaced (kept
+// in csrc/mac_probe.cu; its SASS: FMUL, FFMA, FADD a part), written out
+// so that no schedule changes it.
+__device__ __forceinline__ void mac_step(float2& acc, float2 x, float2 h) {
+  acc.x = __fadd_rn(acc.x, __fmaf_rn(x.x, h.x, -__fmul_rn(x.y, h.y)));
+  acc.y = __fadd_rn(acc.y, __fmaf_rn(x.x, h.y, __fmul_rn(x.y, h.x)));
+}
+__device__ __forceinline__ void mac_step(double2& acc, double2 x,
+                                         double2 h) {
+  acc.x = __dadd_rn(acc.x, __fma_rn(x.x, h.x, -__dmul_rn(x.y, h.y)));
+  acc.y = __dadd_rn(acc.y, __fma_rn(x.x, h.y, __dmul_rn(x.y, h.x)));
+}
+
+// the multiply-add of causal_mac_kernel (a type, so that
+// csrc/mac_probe.cu can time the kernel with another rounding)
+struct MacRounded {
+  template <class T>
+  static __device__ __forceinline__ void step(T& acc, T x, T h) {
+    mac_step(acc, x, h);
+  }
+};
+
+template <class T, class Step = MacRounded>
+__global__ void FC_BOUNDS(kMacMaxWarps * 32, sizeof(T) == 8 ? 2 : 1)
+causal_mac_kernel(const T* __restrict__ X, const T* __restrict__ H,
+                  T* __restrict__ Yout, int C, int K, int B, int P) {
   typedef typename Cx<T>::R Real;
+  constexpr int TF = kMacFrames;
   FC_DYNAMIC_SMEM(T, fc_smem);
-  T* ring = fc_smem;               // [slot][lb]
-  T* hs = fc_smem + P * bt;        // [j][lb]
-  const int c = blockIdx.x;
-  const int b0 = blockIdx.y * bt;
-  const int nb = (B - b0 < bt) ? (B - b0) : bt;
-  for (int lb = threadIdx.x; lb < nb; lb += blockDim.x) {
-    const int b = b0 + lb;
-    for (int j = 0; j < P; ++j) hs[j * bt + lb] = H[(size_t)j * B + b];
-    const T* Xc = X + (size_t)c * K * B + b;
-    T* Yc = Yout + (size_t)c * K * B + b;
-    int slot = 0;                  // ring slot of frame f: f % P
-    T xn = Xc[0];
-    for (int f = 0; f < K; ++f) {
-      const T xf = xn;
-      if (f + 1 < K) xn = Xc[(size_t)(f + 1) * B];
-      ring[slot * bt + lb] = xf;
-      const int jmax = (f < P - 1) ? f : (P - 1);
-      T acc = Cx<T>::make(Real(0), Real(0));
-      int s = slot;
-      for (int j = 0; j <= jmax; ++j) {
-        const T xv = ring[s * bt + lb];
-        const T hv = hs[j * bt + lb];
-        acc.x += xv.x * hv.x - xv.y * hv.y;
-        acc.y += xv.x * hv.y + xv.y * hv.x;
-        s = (s == 0) ? (P - 1) : (s - 1);
+  const T zero = Cx<T>::make(Real(0), Real(0));
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int R = P > 1 ? P - 1 : 1;             // ring slots
+  const int b0 = blockIdx.x * 32;
+  for (int e = threadIdx.x; e < P * 32; e += blockDim.x) {
+    const int b = b0 + (e & 31);
+    fc_smem[e] = b < B ? H[(size_t)(e >> 5) * B + b] : zero;
+  }
+  __syncthreads();
+  const int c = blockIdx.y * (blockDim.x >> 5) + warp;
+  if (c >= C) return;
+  const T* hs = fc_smem + lane;                // H[j] at hs[j * 32]
+  T* ring = fc_smem + (P + warp * R) * 32 + lane;  // slot s at ring[s * 32]
+  for (int s = 0; s < R; ++s) ring[s * 32] = zero;
+  const bool live = b0 + lane < B;
+  const T* Xc = X + (size_t)c * K * B + b0 + lane;
+  T* Yc = Yout + (size_t)c * K * B + b0 + lane;
+  T xn[TF];
+#pragma unroll
+  for (int t = 0; t < TF; ++t)
+    xn[t] = (live && t < K) ? Xc[(size_t)t * B] : zero;
+  int top = 0;                                 // ring slot of frame f0
+  for (int f0 = 0; f0 < K; f0 += TF) {
+    T cur[TF], v[TF], acc[TF];
+#pragma unroll
+    for (int t = 0; t < TF; ++t) {
+      cur[t] = xn[t];
+      v[t] = xn[t];
+      const int fn = f0 + TF + t;
+      xn[t] = (live && fn < K) ? Xc[(size_t)fn * B] : zero;
+    }
+    const T h0 = hs[0];
+#pragma unroll
+    for (int t = 0; t < TF; ++t) {
+      acc[t] = zero;
+      Step::step(acc[t], v[t], h0);
+    }
+    // steps j = jb + u, u = 1..TF; slot of frame f0 - jb - 1 in sb
+    const int jmax = (f0 + TF - 1 < P - 1) ? f0 + TF - 1 : P - 1;
+    int jb = 0;
+    int sb = top - 1 < 0 ? top - 1 + R : top - 1;
+    for (; jb + TF <= jmax; jb += TF) {
+      const T* hj = hs + jb * 32;
+#pragma unroll
+      for (int u = 1; u <= TF; ++u) {
+        const int s = sb - (u - 1) < 0 ? sb - (u - 1) + R : sb - (u - 1);
+        v[(TF - u) % TF] = ring[s * 32];
+        const T h = hj[u * 32];
+#pragma unroll
+        for (int t = 0; t < TF; ++t)
+          Step::step(acc[t], v[(t - u + TF) % TF], h);
       }
-      Yc[(size_t)f * B] = acc;
-      slot = (slot + 1 == P) ? 0 : (slot + 1);
+      sb = sb - TF < 0 ? sb - TF + R : sb - TF;
+    }
+    const T* hj = hs + jb * 32;                // the last jmax - jb < TF
+#pragma unroll
+    for (int u = 1; u < TF; ++u) {
+      if (jb + u <= jmax) {
+        const int s = sb - (u - 1) < 0 ? sb - (u - 1) + R : sb - (u - 1);
+        v[(TF - u) % TF] = ring[s * 32];
+        const T h = hj[u * 32];
+#pragma unroll
+        for (int t = 0; t < TF; ++t)
+          Step::step(acc[t], v[(t - u + TF) % TF], h);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TF; ++t) {
+      if (live && f0 + t < K) Yc[(size_t)(f0 + t) * B] = acc[t];
+      ring[top * 32] = cur[t];                 // frame f0 + t
+      top = top + 1 == R ? 0 : top + 1;
     }
   }
 }
@@ -826,33 +920,54 @@ int irfft_valid_impl(const void* Y, void* scratch, void* y, int C, int K,
                        lR2);
 }
 
-// Bins per MAC block of complex type T for P partitions (the ring and H
-// in shared memory), or 0 when P does not fit.
+// Shared bytes of a MAC block of G channels: H and G ring columns a bin.
 template <class T>
-int mac_tile(int P) {
-  for (int bt = 128; bt >= 32; bt >>= 1)
-    if ((size_t)2 * P * bt * sizeof(T) <= (size_t)kMacSmemMax) return bt;
-  return 0;
+size_t mac_smem(int P, int G) {
+  return (size_t)(P + G * (P > 1 ? P - 1 : 1)) * 32 * sizeof(T);
 }
 
+// Channels (warps) a MAC block for C channels of P partitions: the power
+// of two up to kMacMaxWarps (and not past the one that covers C) giving
+// the most warps an SM by shared memory, the larger on a tie (H shared
+// by more channels); 0 when P does not fit a block of one.
 template <class T>
+int mac_block(int C, int P) {
+  if (P < 1 || mac_smem<T>(P, 1) > (size_t)kMacSmemMax) return 0;
+  int best = 1, best_warps = 0;
+  for (int g = 1; g <= kMacMaxWarps && (g == 1 || (g >> 1) < C); g <<= 1) {
+    const size_t smem = mac_smem<T>(P, g);
+    if (smem > (size_t)kMacSmemMax) break;
+    int warps = g * (int)(kSmemPerSM / (smem + kSmemPerBlockReserved));
+    if (warps > 64) warps = 64;                // 2048 threads an SM
+    if (warps >= best_warps) {
+      best = g;
+      best_warps = warps;
+    }
+  }
+  return best;
+}
+
+template <class T, class Step = MacRounded>
 int causal_mac_impl(const void* X, const void* H, void* Y, int C, int K,
                     int B, int P, void* stream) {
-  const int bt = mac_tile<T>(P);
-  if (bt == 0 || C < 1 || K < 1 || B < 1) return -1;
-  return launch_kernel(causal_mac_kernel<T>, dim3(C, (B + bt - 1) / bt), bt,
-                       (size_t)2 * P * bt * sizeof(T), (cudaStream_t)stream,
-                       (const T*)X, (const T*)H, (T*)Y, K, B, P, bt);
+  const int G = mac_block<T>(C, P);
+  if (G == 0 || C < 1 || K < 1 || B < 1) return -1;
+  return launch_kernel(causal_mac_kernel<T, Step>,
+                       dim3((B + 31) / 32, (C + G - 1) / G), 32 * G,
+                       mac_smem<T>(P, G), (cudaStream_t)stream, (const T*)X,
+                       (const T*)H, (T*)Y, C, K, B, P);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bins per MAC block for P partitions, or 0 when P does not fit: complex64
-// and complex128.
-int frame_conv_mac_tile(int P) { return mac_tile<float2>(P); }
-int frame_conv_mac_tile_c128(int P) { return mac_tile<double2>(P); }
+// Channels (warps) a MAC block for C channels of P partitions, or 0 when
+// P does not fit: complex64 and complex128.
+int frame_conv_mac_block(int C, int P) { return mac_block<float2>(C, P); }
+int frame_conv_mac_block_c128(int C, int P) {
+  return mac_block<double2>(C, P);
+}
 
 // Each entry returns 0 on success, -1 for an unsupported shape, else the
 // CUDA error.  The transforms take a complex scratch of C*K*p values of

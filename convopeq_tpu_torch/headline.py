@@ -3,10 +3,11 @@ stereo IR plus the 20-band EQ at 48 kHz, folded into one uniform
 partitioned convolution per channel, many independent stereo streams
 per call.
 
-    python -m convopeq_tpu_torch.headline
+    python -m convopeq_tpu_torch.headline [--profile]
 
 prints one JSON line with the realtime factor on the card (64 streams x
-60 s, f32; the f64 line is `parity.py`'s headline_f64).  The IR is made
+60 s, f32; the f64 line is `parity.py`'s headline_f64) and, with
+`--profile`, the device time of one call by kernel.  The IR is made
 as bench.py makes it (seed 0, decay exp(-n/(ir_len/10)), x0.02, EQ gains
 linspace(-4, 4, 20), FilterSpec(48000), block 512); the input is normal
 noise x0.25 made on the device from a seed.
@@ -15,12 +16,13 @@ from __future__ import annotations
 
 import json
 import statistics
+import sys
 import time
 
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import card_description, resolve_device
 from .models.chain import ChainConfig, FoldedChain, prepare_folded_convolver
 from .models.eq import EQParams
 from .models.nuc import FilterSpec
@@ -108,7 +110,7 @@ def print_profile(name: str, wall: float, rows: list, card: str) -> None:
         print(f"  {ms:9.3f} ms  x{count:<4d} {kernel[:110]}")
 
 
-def main():
+def main(argv=()):
     """The headline at its fixed batch: 64 streams x 60 s, f32, on the card."""
     batch, seconds = 64, 60.0
     chain = headline_chain("cuda")
@@ -121,7 +123,10 @@ def main():
         "walls_s": walls,
         "batch": batch,
         "device": torch.cuda.get_device_name(0)}))
+    if "--profile" in argv:
+        print_profile("headline", *profile_call(lambda: chain(x)),
+                      card_description())
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -60,8 +60,8 @@ LIBRARIES = {
             "causal_mac_c64": [_P, _P, _P, _I, _I, _I, _I, _P],
             "causal_mac_c128": [_P, _P, _P, _I, _I, _I, _I, _P],
             "fused_conv_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-            "frame_conv_mac_tile": [_I],
-            "frame_conv_mac_tile_c128": [_I],
+            "frame_conv_mac_block": [_I, _I],
+            "frame_conv_mac_block_c128": [_I, _I],
         }),
     "error_feedback_quantize": Library(
         "error_feedback_quantize",

@@ -44,13 +44,15 @@ osa_rfft — replaces `_fwd_kernel` (`rfft_two_stage_pallas`): the same
 causal_mac — replaces `_mac_kernel` (`causal_mac_grid_pallas`) and, in
     c128, `_dd_mac_kernel`.
     Per bin and frame: one 8-byte X read and one Y write against P complex
-    multiply-adds (8P FLOP): ~16 FLOP per byte of device memory at P = 33.
-    Each bin keeps its last P frame values and its P partition values in
-    shared memory, so X is read from device memory once; the loop is then
-    bound by shared-memory reads (16 B per multiply-add, ~24 TB/s
-    measured, near the card's shared-memory bandwidth).  In c128 a value
-    is 16 B, so a multiply-add reads 32 B of shared memory and a block
-    holds half the bins for the same P (`frame_conv_mac_tile_c128`).
+    multiply-adds (8P FLOP): ~16 FLOP per byte of device memory at P = 33,
+    near the f32 ridge (~20), so bytes and operations bind it about
+    equally there (at P = 64 operations).  A thread walks the frames of
+    its bin and channel eight output frames at a time, with eight
+    accumulators and a window of eight X values in registers: one shared
+    load of X (a ring of its bin's last P-1 frames) and one of H serve
+    eight multiply-adds.  A block's warps are channels of the same 32
+    bins, sharing H in shared memory (`frame_conv_mac_block`: how many,
+    for the most warps an SM); X is read from device memory once.
 irfft_valid — replaces `_inv_kernel` (`irfft_valid_two_stage_pallas`)
     and, in f64, `_inv_dd_kernel`.
     The forward's packing run backwards: the first pass combines bins k
@@ -237,11 +239,12 @@ def causal_mac(X, H):
     if H.shape[1] != B:
         raise ValueError(f"causal_mac: H has {H.shape[1]} bins, X has {B}")
     lib = load("frame_conv")
-    tile = (lib.frame_conv_mac_tile if X.dtype == torch.complex64
-            else lib.frame_conv_mac_tile_c128)
-    if tile(P) == 0:
-        raise ValueError(f"causal_mac: P={P} partitions exceed the "
-                         f"{X.dtype} kernel's shared memory")
+    block = (lib.frame_conv_mac_block if X.dtype == torch.complex64
+             else lib.frame_conv_mac_block_c128)
+    if block(C, P) == 0:
+        raise ValueError(f"causal_mac: P={P} partitions: the {X.dtype} "
+                         f"kernel takes from 1 to as many as fit its "
+                         f"shared memory (frame_conv_mac_block)")
     Y = torch.empty_like(X)
     with torch.cuda.device(X.device):
         rc = getattr(lib, entry)(X.data_ptr(), H.data_ptr(), Y.data_ptr(),

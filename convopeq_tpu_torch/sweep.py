@@ -5,6 +5,7 @@ stated beside the card's name and power limit.
     python -m convopeq_tpu_torch.sweep partition    # f64 headline partition
     python -m convopeq_tpu_torch.sweep ab DIR [frame_conv|quantizer]
     python -m convopeq_tpu_torch.sweep probe [DIR]  # quantizer diagnosis
+    python -m convopeq_tpu_torch.sweep probe mac [DIR]  # MAC diagnosis
 
 - rows: csrc/frame_conv.cu built with -DFC_F64_ROW_ELEMS = 1024, 2048
   and 4096 (complex values per f64 FFT block), one nvcc each, in
@@ -16,8 +17,9 @@ stated beside the card's name and power limit.
   of 3 calls after a warm-up).
 - ab DIR [frame_conv|quantizer]: the entries AB_ENTRIES of this tree's
   convopeq_tpu_torch/csrc/frame_conv.cu (the f32 forward, osa_rfft, the
-  f64 forward, the c64 MAC, the f32 and f64 inverses, the fused kernel)
-  against those of the tree at DIR, each on the same inputs in both
+  f64 forward, the c64 and c128 MACs, also at AB_MAC_L1, the f32 and f64
+  inverses, the fused kernel) against those of the tree at DIR, each on
+  the same inputs in both
   builds: equal bit for bit or not, with max |after - before| / max
   |before|, and their times in the order DIR, this, this, DIR; then the
   quantizer (csrc/error_feedback_quantize.cu) the same way at QUANT_AB,
@@ -29,6 +31,15 @@ stated beside the card's name and power limit.
   instruction of dependent chains, cycles a step of the step fed from
   registers and of the chain warp's loop over a stage, and of the whole
   kernel at one warp (this tree's, and DIR's beside it when given).
+- probe mac [DIR]: the MAC's diagnosis (csrc/mac_probe.cu): ptxas
+  registers and spills of the MAC kernels, their loops in the SASS with
+  the opcodes of the short ones in order, the SM clock, blocks and warps
+  an SM of the ring MAC (the design this tree's MAC replaced) and of
+  this tree's MAC at P = 12, 23, 33, 64, and at MAC_SHAPES in c64 and
+  c128 the ring MAC's cycles a j-step (clock64 a block, one block alone
+  and the whole grid, the kernel and its j loop alone), beside this
+  tree's (and DIR's) entry timed with CUDA events: ms and complex
+  multiply-adds a cycle an SM.
 """
 from __future__ import annotations
 
@@ -173,8 +184,11 @@ def partition(card):
 
 
 AB_ENTRIES = ("frames_rfft_f32", "osa_rfft_f32", "frames_rfft_f64",
-              "causal_mac_c64", "irfft_valid_f32", "irfft_valid_f64",
-              "fused_conv_f32")
+              "causal_mac_c64", "causal_mac_c128", "irfft_valid_f32",
+              "irfft_valid_f64", "fused_conv_f32")
+# the MACs' second A/B shape (C, K, p, P): the prefilter chain's L1
+# (4096 x 64) at 60 s, 16 channel-streams
+AB_MAC_L1 = (16, 704, 4096, 64)
 
 
 def _ab_calls(lib, ins, C, K, p, P, fused_shape):
@@ -197,13 +211,21 @@ def _ab_calls(lib, ins, C, K, p, P, fused_shape):
     forward("frames_rfft_f32", ins["frames"], c64)
     forward("osa_rfft_f32", ins["osa"], c64)
     forward("frames_rfft_f64", ins["frames64"], c128)
-    X, H = ins["X"], ins["H"]
-    Y = torch.empty_like(X)
-    calls["causal_mac_c64"] = (lambda: _check(lib.causal_mac_c64(
-        X.data_ptr(), H.data_ptr(), Y.data_ptr(), C, K, p + 1, P, st),
-        "mac"), Y)
+
+    def mac(name, entry, X, H):
+        Y = torch.empty_like(X)
+        fn = getattr(lib, entry)
+        C1, K1, B1 = X.shape
+        calls[name] = (lambda: _check(fn(
+            X.data_ptr(), H.data_ptr(), Y.data_ptr(), C1, K1, B1,
+            H.shape[0], st), name), Y)
+    for entry in ("causal_mac_c64", "causal_mac_c128"):
+        sfx = "128" if entry.endswith("128") else ""
+        mac(entry, entry, ins["X" + sfx], ins["H" + sfx])
+        mac(f"{entry} L1", entry, ins["X_l1" + sfx], ins["H_l1" + sfx])
     # 2p scratch values a frame for every transform: what the
     # full-length ones (an older tree's) need
+    X = ins["X"]
     y = torch.empty((C, K, p), device=dev)
     sc = torch.empty((C * K * 2 * p,), dtype=c64, device=dev)
     calls["irfft_valid_f32"] = (lambda: _check(lib.irfft_valid_f32(
@@ -257,7 +279,10 @@ def ab_frame_conv(card, other: str):
            "fused_frames": torch.randn((Cf, Kf, pf), generator=gen,
                                        device="cuda"),
            "fused_H": cplx((Pf, pf + 1))}
-    ins["X128"] = ins["X"].to(torch.complex128)
+    C1, K1, p1, P1 = AB_MAC_L1
+    ins["X_l1"], ins["H_l1"] = cplx((C1, K1, p1 + 1)), cplx((P1, p1 + 1))
+    for k in ("X", "H", "X_l1", "H_l1"):
+        ins[k + "128"] = ins[k].to(torch.complex128)
     calls = {k: _ab_calls(lib, ins, C, K, p, P, fused_shape)
              for k, lib in libs.items()}
     outs = {}
@@ -266,18 +291,18 @@ def ab_frame_conv(card, other: str):
             fn()
         torch.cuda.synchronize()
         outs[k] = {n: out.clone() for n, (_, out) in calls[k].items()}
-    for n in AB_ENTRIES:
+    for n in outs["after"]:
         a, b = outs["before"][n], outs["after"][n]
         rel = float((b - a).abs().max() / a.abs().max())
         print(f"{n}: bit for bit equal to {other}'s {torch.equal(a, b)}, "
               f"max |after - before| / max |before| {rel:.3e} [{card}]")
-    times = {k: {n: [] for n in AB_ENTRIES} for k in calls}
+    times = {k: {n: [] for n in calls[k]} for k in calls}
     for k in ("before", "after", "after", "before"):
         for n, (fn, _) in calls[k].items():
             times[k][n].append(round(time_ms(fn), 4))
     print(f"kernel ms, order before, after, after, before (C={C} K={K} "
-          f"p={p} P={P}; fused at C={Cf} K={Kf} p={pf} P={Pf}): {times} "
-          f"[{card}]")
+          f"p={p} P={P}; fused at C={Cf} K={Kf} p={pf} P={Pf}; the MACs' "
+          f"L1 at (C, K, p, P) = {AB_MAC_L1}): {times} [{card}]")
 
 
 # the quantizer's A/B shapes: (name, dtype, R, N, bits, bank): config6's
@@ -373,6 +398,7 @@ def _short(mangled):
         return mangled      # no CUDA toolkit here
     for junk in ("(int)", "(anonymous namespace)::", "<unnamed>::"):
         out = out.replace(junk, "")
+    out = out.replace("(bool)1", "true").replace("(bool)0", "false")
     return out.removeprefix("void ").split("(")[0]
 
 
@@ -390,18 +416,20 @@ def ptxas_report(log):
     return rep
 
 
-def sass_loops(path, out_name):
+def sass_loops(path, out_name, min_n=24, seq_max=0):
     """cuobjdump -sass of the library at `path` into SASS_DIR/out_name;
     returns {kernel: [loop, ...]} where each loop (a backward branch's
-    span of at least 24 instructions) is a dict of its instruction count
-    and its counts of the instructions named in `kinds`."""
+    span of at least `min_n` instructions) is a dict of its instruction
+    count and its counts of the instructions named in `kinds`, and, for
+    a loop of at most `seq_max` instructions, its opcodes in order
+    (`seq`)."""
     text = subprocess.run([_tool("cuobjdump"), "-sass", str(path)],
                           capture_output=True, text=True, check=True).stdout
     SASS_DIR.mkdir(parents=True, exist_ok=True)
     (SASS_DIR / out_name).write_text(text)
     kinds = ("LDL", "STL", "LDS", "STS", "LDGSTS", "BAR", "FRND", "SYNCS",
-             "LDG", "STG", "FADD", "FMUL", "FMNMX", "DADD", "DMUL", "DSETP",
-             "FSEL", "MOV")
+             "LDG", "STG", "FADD", "FMUL", "FFMA", "FMNMX", "DADD", "DMUL",
+             "DFMA", "DSETP", "FSEL", "MOV")
     loops, fn, ins = {}, None, []
 
     def flush():
@@ -415,11 +443,13 @@ def sass_loops(path, out_name):
             if target >= addr:
                 continue
             body = [o for a, o, _ in ins[:i + 1] if a >= target]
-            if len(body) >= 24:
+            if len(body) >= min_n:
                 found.append({"from": hex(target), "to": hex(addr),
                               "n": len(body), **{
                                   k: sum(o.split(".")[0] == k for o in body)
                                   for k in kinds}})
+                if len(body) <= seq_max:
+                    found[-1]["seq"] = " ".join(body)
         loops[_short(fn)] = found
     for line in text.splitlines():
         if "Function :" in line:
@@ -555,6 +585,189 @@ def probe(card, other=None):
     print(f"nvidia-smi clocks.sm, clocks.max.sm: {_smi_clocks()} [{card}]")
 
 
+# ------------------------------------------------------------ the MAC probe
+
+MAC_PROBE_LIB = _build.Library(
+    "mac_probe", _build.LIBRARIES["frame_conv"].source.parent
+    / "mac_probe.cu", _build.LIBRARIES["frame_conv"].flags, {
+        "mac_probe_ring_c64": [_build._P] * 3 + [_build._I] * 6
+        + [_build._P],
+        "mac_probe_ring_c128": [_build._P] * 3 + [_build._I] * 6
+        + [_build._P],
+        "mac_probe_ring_occupancy": [_build._I, _build._I, _build._P],
+        "mac_probe_occupancy": [_build._I, _build._I, _build._I,
+                                _build._P],
+        "mac_probe_form_c64": [_build._I] + [_build._P] * 3
+        + [_build._I] * 4,
+        "mac_probe_form_c128": [_build._I] + [_build._P] * 3
+        + [_build._I] * 4,
+    }, deps=(_build.LIBRARIES["frame_conv"].source,))
+# the MAC's probe shapes (name, C, K, p, P): the A/B shape (the headline's
+# table shape) and the prefilter chain's L1 (4096 x 64) at 60 s
+MAC_SHAPES = (("A/B", 8, 88, 32768, 33), ("L1", 16, 704, 4096, 64))
+MAC_PARTS = (12, 23, 33, 64)       # the P of the paths' MAC layers
+# csrc/mac_probe.cu's other multiply-adds, by its form number
+MAC_FORMS = ("four fused multiply-adds (MacFused)",
+             "two fused multiply-adds (MacHalf)")
+SMS = 132                          # streaming multiprocessors of an H100
+
+
+def mac_steps(K, P):
+    """j-steps of one output walk over K frames: sum_f min(f + 1, P)."""
+    return sum(min(f + 1, P) for f in range(K))
+
+
+def mac_tile_steps(K, P, frames=8):
+    """j-steps of one warp of this tree's MAC over K frames, `frames`
+    output frames a step: j = 0 .. min(P - 1, f0 + frames - 1) a tile."""
+    return sum(min(P - 1, f0 + frames - 1) + 1
+               for f0 in range(0, K, frames))
+
+
+def probe_mac(card, other=None):
+    """Step 1 of the MAC's diagnosis; see the source note of
+    csrc/mac_probe.cu.  With `other`, that tree's MAC is timed beside this
+    one's."""
+    base = _build.LIBRARIES["frame_conv"]
+    sigs = {k: base.signatures[k] for k in ("causal_mac_c64",
+                                            "causal_mac_c128")}
+    libs = {"this": replace(base, signatures=sigs), "probe": MAC_PROBE_LIB,
+            "clock": PROBE_LIB}
+    if other is not None:
+        libs["other"] = replace(base, name="frame_conv_other", source=Path(
+            other).resolve() / "convopeq_tpu_torch" / "csrc" /
+            "frame_conv.cu", signatures=sigs)
+    built = _build.build_all(libs)
+    for k in ("this", "other", "probe"):
+        if k not in built:
+            continue
+        path, log = built[k]
+        for kern, line in ptxas_report(log).items():
+            if "mac" in kern:
+                print(f"ptxas {k}: {kern}: {line}")
+        for kern, found in sass_loops(path, f"mac_{k}.sass", min_n=8,
+                                      seq_max=160).items():
+            if "mac" in kern:
+                print(f"sass {k}: {kern}: loops {found}")
+    dll = {k: _build.bind(libs[k], built[k][0]) for k in libs}
+    dev = torch.device("cuda")
+    out = torch.zeros(16, dtype=torch.int64, device=dev)
+    _check(dll["clock"].ef_probe_clock(out.data_ptr(), 2_000_000), "clock")
+    clk, ns = out[:2].tolist()
+    ghz = clk / ns
+    print(f"SM clock: {clk} cycles in {ns} ns = {ghz * 1e3:.1f} MHz "
+          f"[{card}]")
+    p = dll["probe"]
+    occ = {}
+    res = (ctypes.c_int * 4)()
+    for c128 in (0, 1):
+        for P in MAC_PARTS:
+            _check(p.mac_probe_ring_occupancy(P, c128, res), "occupancy")
+            blocks, threads, smem, bins = list(res)
+            occ[(c128, P)] = (blocks, bins)
+            print(f"ring MAC {'c128' if c128 else 'c64'} P={P}: {bins} bins "
+                  f"a block, {threads} threads, {smem} B shared, {blocks} "
+                  f"blocks an SM = {blocks * threads // 32} warps an SM "
+                  f"[{card}]")
+            for C in sorted({s[1] for s in MAC_SHAPES}):
+                _check(p.mac_probe_occupancy(C, P, c128, res), "occupancy")
+                blocks, threads, smem, chans = list(res)
+                print(f"this tree's MAC {'c128' if c128 else 'c64'} C={C} "
+                      f"P={P}: {chans} channels x 32 bins a block, "
+                      f"{threads} threads, {smem} B shared, {blocks} blocks "
+                      f"an SM = {blocks * threads // 32} warps an SM "
+                      f"[{card}]")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for name, C, K, part, P in MAC_SHAPES:
+        B = part + 1
+        steps = mac_steps(K, P)
+        for dt in (torch.complex64, torch.complex128):
+            c128 = int(dt == torch.complex128)
+            real = torch.float64 if c128 else torch.float32
+            X = torch.randn((C, K, B, 2), generator=gen, device=dev,
+                            dtype=real)
+            H = torch.randn((P, B, 2), generator=gen, device=dev, dtype=real)
+            X, H = torch.view_as_complex(X), torch.view_as_complex(H)
+            Y = torch.empty_like(X)
+            blocks, bins = occ[(c128, P)]
+            grid = C * -(-B // bins)
+            cyc = torch.zeros(grid, dtype=torch.int64, device=dev)
+            fn = p.mac_probe_ring_c128 if c128 else p.mac_probe_ring_c64
+            got = {}
+            for loop_only in (0, 1):
+                for one in (1, 0):
+                    cyc.zero_()
+                    _check(fn(X.data_ptr(), H.data_ptr(), Y.data_ptr(), C, K,
+                              B, P, loop_only, one, cyc.data_ptr()), "ring")
+                    torch.cuda.synchronize()
+                    v = cyc[:1] if one else cyc
+                    what = ("j loop alone" if loop_only else "kernel") + (
+                        ", one block" if one else ", whole grid (mean, max)")
+                    got[what] = (round(float(v.double().mean()) / steps, 2),
+                                 round(float(v.max()) / steps, 2))
+            rounds = -(-grid // (blocks * SMS))
+            macs = C * B * steps
+            timed = {}
+            for k in [k for k in ("other", "this") if k in dll]:
+                entry = getattr(dll[k], "causal_mac_c128" if c128
+                                else "causal_mac_c64")
+                ms = time_ms(lambda: _check(entry(
+                    X.data_ptr(), H.data_ptr(), Y.data_ptr(), C, K, B, P,
+                    _stream(X)), "mac"))
+                timed[k] = (round(ms, 4), round(ms * 1e6 * ghz
+                                                / (rounds * steps), 1),
+                            round(macs / (ms * 1e6 * ghz * SMS), 2))
+            form = p.mac_probe_form_c128 if c128 else p.mac_probe_form_c64
+            for f, what in enumerate(MAC_FORMS):
+                ms = time_ms(lambda: _check(form(
+                    f, X.data_ptr(), H.data_ptr(), Y.data_ptr(), C, K, B,
+                    P), what))
+                timed[f"this, {what}"] = (round(ms, 4), None, round(
+                    macs / (ms * 1e6 * ghz * SMS), 2))
+            print(f"ring MAC {name} C={C} K={K} p={part} P={P} "
+                  f"{str(dt)[6:]}: {steps} j-steps a thread, {grid} blocks, "
+                  f"{blocks} an SM, {rounds} rounds; cycles a j-step "
+                  f"(clock64, per block): {got}; the entries (ms, the ring "
+                  f"MAC's cycles a j-step as ms x clock / (rounds x steps), "
+                  f"complex multiply-adds a cycle an SM): {timed} [{card}]",
+                  flush=True)
+            del X, H, Y
+            torch.cuda.empty_cache()
+            mac_residency(card, dll["this"], p, name, C, K, P, dt, ghz, gen)
+    print(f"nvidia-smi clocks.sm, clocks.max.sm: {_smi_clocks()} [{card}]")
+
+
+def mac_residency(card, lib, probe_lib, name, C, K, P, dt, ghz, gen):
+    """This tree's MAC at C, K, P with as many bins as make m blocks an SM
+    (m = 1, 2, 3, as far as they fit at once): cycles a warp's 8-frame
+    step from the time (CUDA events x SM clock); equal cycles at m = 1 and
+    2 say one block's warps leave the SM's pipes idle."""
+    c128 = int(dt == torch.complex128)
+    res = (ctypes.c_int * 4)()
+    _check(probe_lib.mac_probe_occupancy(C, P, c128, res), "occupancy")
+    fit, _, _, chans = list(res)
+    groups = -(-C // chans)
+    entry = lib.causal_mac_c128 if c128 else lib.causal_mac_c64
+    real = torch.float64 if c128 else torch.float32
+    steps = mac_tile_steps(K, P)
+    got = {}
+    for m in range(1, min(fit, 3) + 1):
+        B = 32 * SMS * m // groups
+        X = torch.view_as_complex(torch.randn((C, K, B, 2), generator=gen,
+                                              device="cuda", dtype=real))
+        H = torch.view_as_complex(torch.randn((P, B, 2), generator=gen,
+                                              device="cuda", dtype=real))
+        Y = torch.empty_like(X)
+        ms = time_ms(lambda: _check(entry(
+            X.data_ptr(), H.data_ptr(), Y.data_ptr(), C, K, B, P,
+            _stream(X)), "mac"))
+        got[m] = (B, round(ms, 4), round(ms * 1e6 * ghz / steps, 1))
+    print(f"this tree's MAC {name} C={C} K={K} P={P} {str(dt)[6:]}, "
+          f"{chans} channels a block, {steps} 8-frame steps a warp: blocks "
+          f"an SM m -> (bins, ms, cycles a warp's step): {got} [{card}]",
+          flush=True)
+
+
 def _smi_clocks():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -589,6 +802,8 @@ def main(argv):
         partition(card)
     elif argv[:1] == ["ab"] and len(argv) in (2, 3):
         ab(card, argv[1], argv[2:] or ("frame_conv", "quantizer"))
+    elif argv[:2] == ["probe", "mac"] and len(argv) <= 3:
+        probe_mac(card, argv[2] if len(argv) == 3 else None)
     elif argv[:1] == ["probe"] and len(argv) <= 2:
         probe(card, argv[1] if len(argv) == 2 else None)
     else:

@@ -32,8 +32,8 @@ def build(tmp_path_factory):
     for name in ("causal_mac_c64", "causal_mac_c128"):
         getattr(lib, name).argtypes = [P_, P_, P_, I_, I_, I_, I_, P_]
     lib.fused_conv_f32.argtypes = [P_, P_, P_, P_, I_, I_, I_, I_, P_]
-    lib.frame_conv_mac_tile.argtypes = [I_]
-    lib.frame_conv_mac_tile_c128.argtypes = [I_]
+    lib.frame_conv_mac_block.argtypes = [I_, I_]
+    lib.frame_conv_mac_block_c128.argtypes = [I_, I_]
     return lib
 
 

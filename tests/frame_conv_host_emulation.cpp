@@ -89,6 +89,18 @@ static void run_block(unsigned nthreads, const std::function<void()>& fn) {
 #define __restrict__
 static inline void __syncthreads() { emu::yield(); }
 
+// explicitly rounded arithmetic: one IEEE operation each, fma unrounded
+static inline float __fadd_rn(float a, float b) { return a + b; }
+static inline float __fmul_rn(float a, float b) { return a * b; }
+static inline float __fmaf_rn(float a, float b, float c) {
+  return std::fma(a, b, c);
+}
+static inline double __dadd_rn(double a, double b) { return a + b; }
+static inline double __dmul_rn(double a, double b) { return a * b; }
+static inline double __fma_rn(double a, double b, double c) {
+  return std::fma(a, b, c);
+}
+
 static inline void sincospif(float x, float* s, float* c) {
   const double a = (double)x * M_PI;
   *s = (float)std::sin(a);

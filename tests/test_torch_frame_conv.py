@@ -130,6 +130,23 @@ def test_wrappers_take_plain_versions_on_cpu():
     assert all(v == 0 for v in fk.launch_counts.values())
 
 
+@pytest.mark.parametrize("dtype,rel", [(np.complex64, 2e-5),
+                                       (np.complex128, 1e-12)])
+@pytest.mark.parametrize("C,K,P,B", [(3, 20, 6, 17), (2, 4, 9, 33),
+                                     (1, 7, 1, 5)])
+def test_chip_smoke_mac_library_is_causal_mac(dtype, rel, C, K, P, B):
+    """chip_smoke's library yardstick for the MAC rows (a grouped complex
+    conv1d), K < P included, against the plain version."""
+    import chip_smoke
+    rng = np.random.default_rng(C * K * P + B)
+    X = torch.from_numpy(_cplx(rng, (C, K, B), dtype))
+    H = torch.from_numpy(_cplx(rng, (P, B), dtype))
+    Y = chip_smoke.mac_library(X, H)
+    ref = fk.causal_mac_plain(X, H)
+    assert Y.shape == ref.shape and Y.dtype == ref.dtype
+    assert float((Y - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
 def _rel_rms(a, b):
     return float(np.sqrt(np.mean((a - b) ** 2) / np.mean(b ** 2)))
 
@@ -224,8 +241,17 @@ def test_cuda_source_transforms_emulated(emulated, p, C, K):
                                axis=-1).astype(np.complex64), 2e-5)
 
 
+# the MAC's edges: K not a multiple of its 8-frame tile, K < P, P = 1, C
+# not a multiple of the channels a block takes (3 of 4, 5 of 8), B not a
+# multiple of its 32 bins, ring wraps within a tile (P - 1 < 8) and
+# across tiles, and the largest P of each type
+MAC_EDGES = [(3, 21, 12, 70), (2, 5, 12, 40), (2, 9, 1, 33),
+             (2, 70, 12, 45), (5, 30, 17, 45)]
+
+
 @pytest.mark.parametrize("C,K,P,B", [(2, 11, 4, 513), (1, 5, 9, 1025),
-                                     (3, 40, 33, 300), (1, 3, 200, 77)])
+                                     (3, 40, 33, 300), (1, 3, 200, 77),
+                                     *MAC_EDGES, (1, 12, 454, 40)])
 def test_cuda_source_mac_emulated(emulated, C, K, P, B):
     rng = np.random.default_rng(K * P)
     X = torch.from_numpy(_cplx(rng, (C, K, B)))
@@ -238,14 +264,21 @@ def test_cuda_source_mac_emulated(emulated, C, K, P, B):
 
 
 def test_cuda_source_rejects_unsupported_shapes_emulated(emulated):
-    assert emulated.frame_conv_mac_tile(33) == 128
-    assert emulated.frame_conv_mac_tile(454) == 32
-    assert emulated.frame_conv_mac_tile(455) == 0
-    # complex128: 16 B a value, so a block holds half the bins for a P
-    assert emulated.frame_conv_mac_tile_c128(33) == 128
-    assert emulated.frame_conv_mac_tile_c128(64) == 64
-    assert emulated.frame_conv_mac_tile_c128(227) == 32
-    assert emulated.frame_conv_mac_tile_c128(228) == 0
+    # channels (warps) a MAC block: H and a ring column a bin and channel,
+    # (P + G (P - 1)) x 32 values, the G of the most warps an SM
+    assert emulated.frame_conv_mac_block(8, 33) == 8  # 3 blocks by smem
+    assert emulated.frame_conv_mac_block(16, 64) == 8
+    assert emulated.frame_conv_mac_block(3, 33) == 4       # covers C = 3
+    assert emulated.frame_conv_mac_block(1, 33) == 1
+    assert emulated.frame_conv_mac_block(1, 454) == 1
+    assert emulated.frame_conv_mac_block(8, 454) == 1
+    assert emulated.frame_conv_mac_block(1, 455) == 0
+    assert emulated.frame_conv_mac_block(1, 0) == 0
+    # complex128: 16 B a value, so a block of G channels takes half the P
+    assert emulated.frame_conv_mac_block_c128(8, 33) == 8
+    assert emulated.frame_conv_mac_block_c128(16, 64) == 4  # 4 warps an SM
+    assert emulated.frame_conv_mac_block_c128(1, 227) == 1
+    assert emulated.frame_conv_mac_block_c128(1, 228) == 0
     for p in (256, 1000, 131072):
         for name in ("frames_rfft_f32", "frames_rfft_f64", "osa_rfft_f32",
                      "irfft_valid_f32", "irfft_valid_f64"):
@@ -280,7 +313,8 @@ def test_cuda_source_f64_transforms_emulated(emulated, p, C, K):
 
 
 @pytest.mark.parametrize("C,K,P,B", [(2, 11, 4, 513), (1, 9, 64, 300),
-                                     (1, 3, 200, 77)])
+                                     (1, 3, 200, 77), (3, 21, 64, 70),
+                                     *MAC_EDGES, (1, 12, 227, 40)])
 def test_cuda_source_f64_mac_emulated(emulated, C, K, P, B):
     rng = np.random.default_rng(K * P + 1)
     X = _cplx(rng, (C, K, B), np.complex128)
