@@ -47,9 +47,11 @@
    streams x 1.25 s: realtime factor, spread, peak memory and the
    quantizer's share of the call.
 7. The fused P <= 8 kernel against its plain version on the card at the
-   shapes of this slice's paths (C = 8; p = 8192, P = 8, K = 352: the
+   shapes of the paths (C = 8; p = 8192, P = 8, K = 352: the
    prefilter at 60 s; p = 16384, P = 8, K = 176: the fused2 near layer;
-   p = 4096, P = 5, K = 118: the room IR's L1 at 10 s): max |diff| <=
+   p = 4096, P = 5, K = 118: the room IR's L1 at 10 s; p = 65536, P = 8;
+   p = 2048, P = 4, K = 469: the staged chain's blocked EQ at 20 s,
+   bench_all's 4 streams): max |diff| <=
    1e-4 x max |plain| (tests/test_pallas.py's bound for the TPU kernel),
    finite; the kernel's, the plain version's, the three frame kernels'
    and the library transforms' times (CUDA events, median of 7), the
@@ -81,12 +83,29 @@
    fir ladder's bound, every f64 frame kernel launched and no f32 frame
    kernel nor the fused kernel; (b) realtime factor, spread and peak
    memory at the line's batch.
-12. A JSON line of the kernels (launches: the f32 frame kernels' and the
+12. The staged chain at 1x (`staged.py`: bench_all's config1, config2,
+   config4 with the analyzer tap, config5_staged): (a) each line in f32
+   at 4 x 10 s against the f64 plain path on the card, relative RMS
+   <= 2e-3 (the JAX package's f32 bound for the staged chain,
+   tests/test_precision.py:48-90: the 18-20 Hz output-filter biquads),
+   finite, and every kernel its plan routes to launched (the fused
+   kernel for the blocked EQ and each layer of <= 8 partitions, the
+   three f32 frame kernels for any other layer); (b) the f64 twins at
+   <= 1e-12 against the same, beside how far the plain path moves under
+   a 1-ulp input change (the f64 output filter's 15-20 Hz biquads: ~4e-13,
+   see staged.py), only f64 frame kernels launched; (c) the
+   EQ's band cascade at 4 x 95,744 samples (187 blocks of 512, ~2 s):
+   eq20 with saturation 0.3, the AGC on, bands in mid, side and left
+   only, serial and parallel, `eq_process` in f32 against f64 <= 1e-5
+   (tests/test_precision.py's eq_scan bound), and the device time of
+   the cascade and of the AGC alone; (d) the realtime factor, spread
+   and peak memory of the eight lines at 64 streams x 20 s.
+13. A JSON line of the kernels (launches: the f32 frame kernels' and the
    fused kernel's from the prefilter chain's run of phase 8a, the
    quantizer's from config6's of phase 6a, the f64 kernels' from the f64
    headline's of phase 11a, osa_rfft's from the self-check path of 3c;
-   every path's counts beside them), the card's name and power limit,
-   then the result line.
+   every path's counts beside them, the staged lines' included), the
+   card's name and power limit, then the result line.
 Any failure raises, and the script exits non-zero.
 """
 import json
@@ -100,9 +119,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from convopeq_tpu_torch import config6, headline, nuc3, parity
+from convopeq_tpu_torch import config6, headline, nuc3, parity, staged
 from convopeq_tpu_torch.device import card_description
 from convopeq_tpu_torch.models import dither
+from convopeq_tpu_torch.models import eq as eq_model
 from convopeq_tpu_torch.ops import _build
 from convopeq_tpu_torch.ops import frame_conv_kernels as fk
 from convopeq_tpu_torch.ops import fused_conv_kernels as fc
@@ -132,10 +152,11 @@ REPLACES = {
     "osa_rfft": "convopeq_tpu/ops/pallas_gemm_fft.py:133",
 }
 # fused kernel check shapes (C, K, p, P): the prefilter at 60 s, the
-# fused2 near layer at 60 s, the room IR's L1 at 10 s, and the largest
-# partition the kernel takes (its row pass at 256 threads a block)
+# fused2 near layer at 60 s, the room IR's L1 at 10 s, the largest
+# partition the kernel takes (its row pass at 256 threads a block), and
+# the staged chain's blocked EQ (eq20: tail 7,903 taps) at 20 s
 FUSED_SHAPES = [(8, 352, 8192, 8), (8, 176, 16384, 8), (8, 118, 4096, 5),
-                (8, 44, 65536, 8)]
+                (8, 44, 65536, 8), (8, 469, 2048, 4)]
 # one H100 SXM (NVIDIA's data sheet): device memory rate, f32 and f64
 # rates outside the tensor cores
 MEM_BYTES_S = 3.35e12
@@ -948,6 +969,126 @@ def phase_parity(card):
     return by_path
 
 
+def staged_must_launch(line):
+    """The kernels a staged f32 line's plan routes to: the fused kernel
+    for the blocked EQ (eq20 at 48 kHz: p = 2048, P = 4) and for each
+    layer of <= 8 partitions, the three f32 frame kernels for any other
+    layer."""
+    names = set()
+    if line.chain.eq_params is not None and not line.chain.cfg.eq_bypassed:
+        names.add("fused_conv")
+    if line.chain.convolver is not None:
+        for lp in line.chain.convolver.plans[0].layers:
+            names |= ({"fused_conv"} if fc.fused_conv_supported(
+                lp.part_size, lp.num_parts) else set(fk.F32_KERNELS))
+    return sorted(names)
+
+
+def phase_staged(card):
+    """Phase 12: the staged lines, f32 and their f64 twins; returns the
+    counts by line."""
+    t0 = time.perf_counter()
+    lines32 = staged.staged_lines("cuda", torch.float32)
+    lines64 = staged.staged_lines("cuda", torch.float64)
+    plans = {name: [(lp.part_size, lp.num_parts)
+                    for lp in line.chain.convolver.plans[0].layers]
+             for name, line in lines32.items() if line.chain.convolver}
+    print(f"staged lines prepare (f32, f64): {time.perf_counter() - t0:.2f} "
+          f"s; convolver layers {plans} [{card}]")
+    by_path = {}
+    batch, seconds = staged.FIDELITY_SHAPE
+    for name in staged.LINE_NAMES:
+        line, twin = lines32[name], lines64[name + "_f64"]
+        must = staged_must_launch(line)
+        # (a) f32 through the kernels against the f64 plain path
+        x = staged.signal(batch, seconds, "cuda")
+        y, rel, launches = staged.fidelity(line, twin, x)
+        finite = bool(torch.isfinite(y).all())
+        print(f"{name} {batch}x{seconds:g}s f32 kernels vs f64 plain: rel "
+              f"RMS {rel:.3e} (tol {line.limit:g}), finite {finite}, shape "
+              f"{tuple(y.shape)}, launches {launches} (must: {must}) "
+              f"[{card}]")
+        check(y.shape == x.shape and finite, f"{name} output finite, shaped")
+        check(rel <= line.limit, f"{name} matches the f64 plain path")
+        check(all(launches[n] > 0 for n in must),
+              f"{name}: every kernel of its plan launched ({must})")
+        by_path[name] = launches
+        # (b) the f64 twin through the f64 kernels against the same
+        y64, rel64, launches64 = staged.fidelity(twin, twin, x.double())
+        finite = bool(torch.isfinite(y64).all())
+        floor = staged.ulp_floor(twin, x)
+        print(f"{twin.name} {batch}x{seconds:g}s f64 kernels vs f64 plain: "
+              f"rel RMS {rel64:.3e} (tol {twin.limit:g}; the plain path "
+              f"moves {floor:.3e} under a 1-ulp input change), finite "
+              f"{finite}, launches {launches64} [{card}]")
+        check(y64.shape == x.shape and finite,
+              f"{twin.name} output finite, shaped")
+        check(rel64 <= twin.limit, f"{twin.name} matches the f64 plain path")
+        check(all(launches64[n] == 0 for n in [*fk.F32_KERNELS,
+                                                "fused_conv"]),
+              f"{twin.name}: no f32 frame kernel and no fused kernel")
+        if twin.chain.convolver is not None:
+            check(all(launches64[n] > 0 for n in fk.F64_KERNELS),
+                  f"{twin.name}: every f64 frame kernel launched")
+        by_path[twin.name] = launches64
+        del x, y, y64
+    phase_staged_cascade(card)
+    # (d) throughput of the eight lines
+    batch, seconds = staged.RTF_SHAPE
+    for line in [*lines32.values(), *lines64.values()]:
+        xt = staged.signal(batch, seconds, "cuda", line.dtype)
+        row = staged.measure_rtf(line, xt)
+        report_rtf(line.name, batch, seconds, row["walls_s"],
+                   row["peak_gib"] * 2 ** 30, card,
+                   "f64" if line.dtype == torch.float64 else "f32")
+        del xt
+        torch.cuda.empty_cache()
+    return by_path
+
+
+CASCADE_N = 187 * 512          # ~2 s at 48 kHz in whole AGC blocks
+
+
+def cascade_params(structure):
+    """eq20 with saturation 0.3 and the AGC on; band 5 in mid, band 12 in
+    side, band 16 left only."""
+    p = staged.eq20()
+    p.saturation = 0.3
+    p.agc_enabled = True
+    p.structure = structure
+    p.set_band(5, mode=eq_model.MID)
+    p.set_band(12, mode=eq_model.SIDE)
+    p.set_band(16, mode=eq_model.LEFT)
+    return p
+
+
+def phase_staged_cascade(card):
+    """12c: the band cascade (saturated bands, AGC) on the card, f32
+    against f64, with the device time of the call and of the AGC."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((4, 2, CASCADE_N), generator=gen, device=dev) * 0.25
+    sr = staged.SAMPLE_RATE
+    for structure, tag in ((eq_model.SERIAL, "serial"),
+                           (eq_model.PARALLEL, "parallel")):
+        p = cascade_params(structure)
+        y32 = eq_model.eq_process(x, p, sr)
+        y64 = eq_model.eq_process(x.double(), p, sr)
+        rel = parity.rel_rms(y32, y64)
+        finite = bool(torch.isfinite(y32).all())
+        ms = time_ms(lambda: eq_model.eq_process(x, p, sr), reps=3)
+        bands = eq_model.eq_process_bands(x, p, sr)
+        agc_ms = time_ms(lambda: eq_model.agc_apply(x, bands, sr, 512),
+                         reps=3)
+        print(f"EQ cascade ({tag}, saturation 0.3, AGC, mid/side/left bands)"
+              f" 4x{CASCADE_N} f32 vs f64: rel RMS {rel:.3e} (tol 1e-05), "
+              f"finite {finite}; eq_process {ms:.2f} ms a call, of it the "
+              f"AGC ({CASCADE_N // 512} blocks) {agc_ms:.2f} ms (CUDA "
+              f"events, median of 3) [{card}]")
+        check(finite and y32.shape == x.shape, f"EQ cascade {tag} finite")
+        check(rel <= 1e-5, f"EQ cascade {tag} f32 matches f64")
+
+
 def main():
     card = phase_environment()
     phase_build(card)
@@ -963,6 +1104,7 @@ def main():
     by_path["fused2"] = phase_fused2(card, headline_rtf)
     by_path["roomcorr"] = phase_roomcorr(card)
     by_path.update(phase_parity(card))
+    by_path.update(phase_staged(card))
     by_path["self_check"] = self_check
     f64 = by_path["headline_f64"]
     launches = {**by_path["prefilter"], "error_feedback_quantize":

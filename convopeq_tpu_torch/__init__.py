@@ -7,7 +7,10 @@ counterpart is found at once.  This package imports `torch` and never
 semi-folded render chain with dither (`config6.py`), and the reference
 3-layer convolver with the fused-prefilter chain (`models/nuc.py`,
 `models/convolver.py`, `nuc3.py`), each in f32 and in native f64, the
-<=1e-9 tier (`parity.py`: the JAX package's f64 parity lines).  Their
+<=1e-9 tier (`parity.py`: the JAX package's f64 parity lines), and the
+staged chain at 1x (`models/chain.py` `process_chain`, `staged.py`: the
+EQ's band cascade and combined response, the AGC, the output filter's
+biquad scans and the analyzer's STFT as signal passes).  Their
 overlap-save partitioned convolutions run on an NVIDIA H100 through
 hand-written CUDA kernels: three frame kernels in f32 and in f64, and the
 forward of materialized frames (`ops/frame_conv_kernels.py`), and the f32

@@ -5,8 +5,9 @@ sees a JAX object): each channel's `layer_spectra` and direct-head taps
 as numpy arrays and the plan (with each layer's damping) as plain
 numbers; a folded prefilter's spectra as a numpy array; a learned
 coefficient bank store as its dict of plain numbers
-(`AdaptiveCoefficientBanks.to_dict()`).  From the same
-prepared state both packages compute the same output.
+(`AdaptiveCoefficientBanks.to_dict()`); EQ parameters as their numpy
+fields.  From the same prepared state both packages compute the same
+output.
 
 Spectra come as complex arrays or, as the JAX package holds f64 spectra
 on an accelerator (its dd mode, convopeq_tpu/ops/partitioned_conv.py:
@@ -20,6 +21,7 @@ import torch
 
 from .device import resolve_device
 from .models.convolver import StereoConvolverState
+from .models.eq import NUM_BANDS, EQParams
 from .models.learner import AdaptiveCoefficientBanks
 from .models.nuc import NUCLayerPlan, NUCPlan, NUCState
 
@@ -99,3 +101,24 @@ def banks_from_dict(banks: dict) -> AdaptiveCoefficientBanks:
     """banks: {bank index: nine reflection coefficients}, the JAX store's
     `to_dict()` (keys str or int, values lists or arrays)."""
     return AdaptiveCoefficientBanks.from_dict(banks)
+
+
+def eq_params_from_arrays(band_types, freqs, gains_db, qs, modes, enabled,
+                          structure: int, saturation: float,
+                          agc_enabled: bool) -> EQParams:
+    """The port's EQParams from the JAX EQParams' fields: per band the
+    type, frequency, gain (dB), Q, channel mode and enable (arrays of
+    NUM_BANDS), and the structure, saturation and AGC switch."""
+    fields = dict(band_types=np.asarray(band_types, np.int32),
+                  freqs=np.asarray(freqs, np.float64),
+                  gains_db=np.asarray(gains_db, np.float64),
+                  qs=np.asarray(qs, np.float64),
+                  modes=np.asarray(modes, np.int32),
+                  enabled=np.asarray(enabled, bool))
+    for name, a in fields.items():
+        if a.shape != (NUM_BANDS,):
+            raise ValueError(f"{name} of shape {a.shape}, expected "
+                             f"({NUM_BANDS},)")
+    return EQParams(**{k: a.copy() for k, a in fields.items()},
+                    structure=int(structure), saturation=float(saturation),
+                    agc_enabled=bool(agc_enabled))

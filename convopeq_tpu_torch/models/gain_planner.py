@@ -1,6 +1,6 @@
 """Processing-order constants (counterpart of
 convopeq_tpu/models/gain_planner.py:19-21).  The AutoGainPlanner itself
-is ported with the staged chain."""
+is ported with oversampling (ROADMAP.md section 1, item 2)."""
 
 # ProcessingOrder (src/audioengine: enum) — Convolver first vs EQ first
 CONVOLVER_THEN_EQ = 0

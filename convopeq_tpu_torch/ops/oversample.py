@@ -1,10 +1,11 @@
 """Kaiser-halfband oversampling, host part (counterpart of
 convopeq_tpu/ops/oversample.py:32-107; src/CustomInputOversampler.cpp).
 
-Ported here: the coefficient design only (`bessel_i0`, `HalfbandStage`,
+Ported here: the coefficient design (`bessel_i0`, `HalfbandStage`,
 `design_halfband`), host NumPy f64, which the local 2x soft clip
-(ops/softclip.py) takes its 31-tap stage from.  The oversampling signal
-path is not ported yet.
+(ops/softclip.py) takes its 31-tap stage from, and the banded-Toeplitz
+causal FIR `_fir_matmul` (the f32 low-radius biquads of
+ops/scan_iir.py).  The oversampling signal path is not ported yet.
 
 Design (cpp:287-352): odd symmetric taps, the zero-phase arm zeroed (a
 true halfband), DC normalization, the center coefficient forced to 0.5
@@ -15,6 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 # Preset (src/CustomInputOversampler.h Preset enum: IIRLike, LinearPhase)
 PRESET_IIR_LIKE = 0
@@ -92,3 +94,31 @@ def design_halfband(taps: int, attenuation_db: float,
                          conv_parity=conv_parity, conv=conv,
                          center_delay=(M - center_parity) // 2,
                          center_gain=center_gain)
+
+
+def _fir_matmul(x, c):
+    """Causal FIR y[n] = sum_k c[k] x[n-k] along the last axis of x, as
+    blocked banded-Toeplitz GEMMs (convopeq_tpu/ops/oversample.py:
+    156-186): with chunk >= len(c) the band spans at most two adjacent
+    chunks, so y = X @ T0^T + Xprev @ T1^T with two host-constant
+    (chunk, chunk) matrices,
+    T0[i, j] = c[i-j] (the in-chunk band) and T1[i, j] = c[i-j+chunk]
+    (the spill from the previous chunk).  c: host taps (float64)."""
+    c = np.asarray(c, np.float64)
+    r = len(c)
+    n = x.shape[-1]
+    batch = x.shape[:-1]
+    chunk = 1 << int(np.ceil(np.log2(max(r, 128))))
+    nc = -(-n // chunk)
+    npad = nc * chunk
+    xp = torch.nn.functional.pad(x, (0, npad - n)) if npad != n else x
+    xr = xp.reshape((-1, nc, chunk))
+    xprev = torch.nn.functional.pad(xr[:, :-1, :], (0, 0, 1, 0))
+    d = np.subtract.outer(np.arange(chunk), np.arange(chunk))
+    T0 = np.where((d >= 0) & (d < r), c[np.clip(d, 0, r - 1)], 0.0)
+    dp = d + chunk
+    T1 = np.where(dp < r, c[np.clip(dp, 0, r - 1)], 0.0)
+    as_t = lambda T: torch.as_tensor(T.T.copy(), dtype=x.dtype,
+                                     device=x.device)
+    y = xr @ as_t(T0) + xprev @ as_t(T1)
+    return y.reshape(batch + (npad,))[..., :n]

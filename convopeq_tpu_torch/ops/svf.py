@@ -1,13 +1,23 @@
-"""TPT state-variable filter coefficients, host part
-(counterpart of convopeq_tpu/ops/svf.py:28-133).
+"""TPT (topology-preserving transform) state-variable filter
+(counterpart of convopeq_tpu/ops/svf.py).
 
 Coefficient formulas: src/eqprocessor/EQProcessor.Coefficients.cpp:431-607.
 Host NumPy in f64, as in the JAX package: the reference computes them on
 the message thread with libm.
+
+The recurrence (EQProcessor.Processing.cpp:128-186) is linear in the
+state (ic1eq, ic2eq): the saturation blend touches only the output and
+never feeds back, so `svf_process` solves the state trajectory with
+`affine_scan_2x2` and evaluates the output, the blend and the clamps
+elementwise.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from .fast_tanh import fast_tanh_eq, fast_tanh_eq_v
+from .scan_iir import _all_scalar, affine_scan_2x2
 
 # Band types (ref: src/eqprocessor/EQProcessor.h:43-62)
 LOW_SHELF = 0
@@ -24,6 +34,10 @@ DSP_MIN_Q = 0.01
 DSP_MAX_Q = 20.0
 DSP_MIN_GAIN_DB = -48.0
 DSP_MAX_GAIN_DB = 48.0
+
+# Output protection (EQProcessor.Processing.cpp:156-180)
+STATE_ABS_MAX = 1.0e15
+OUTPUT_CLAMP = 100.0
 
 
 def clamp_params(freq, gain_db, q, sample_rate):
@@ -99,3 +113,59 @@ def svf_coeffs(band_type, freq, gain_db, q, sample_rate):
     m1 = np.where(bad, 0.0, m1)
     m2 = np.where(bad, 0.0, m2)
     return a1, a2, a3, m0, m1, m2
+
+
+def svf_transition(a1, a2, a3):
+    """2x2 state-transition matrix of the TPT SVF recurrence, (..., 2, 2)
+    for tensor coefficients of shape (...):
+
+    ic1' = (2 a1 - 1) ic1 - 2 a2 ic2 + 2 a2 u
+    ic2' =  2 a2 ic1 + (1 - 2 a3) ic2 + 2 a3 u
+    """
+    row0 = torch.stack([2.0 * a1 - 1.0, -2.0 * a2], dim=-1)
+    row1 = torch.stack([2.0 * a2, 1.0 - 2.0 * a3], dim=-1)
+    return torch.stack([row0, row1], dim=-2)
+
+
+def svf_process(x, coeffs, state0=None, saturation=0.0, simd_tanh=True):
+    """Apply one SVF band to x (time on the last axis, leading axes batch).
+
+    coeffs: (a1, a2, a3, m0, m1, m2), host scalars (one shared transition)
+    or tensors broadcastable to x.shape[:-1].  Returns (y, final_state).
+    Output: (1-sat) y + sat fastTanh(y) when sat > 0, non-finite or
+    |y| >= STATE_ABS_MAX forced to 0, clamped to +-OUTPUT_CLAMP.
+    simd_tanh: the stereo SSE2 form (clamp then evaluate, True) or the
+    scalar exact-+-1 form (False), or a per-batch-element mask of x's
+    batch shape."""
+    dt, dev = x.dtype, x.device
+    batch = x.shape[:-1]
+    if _all_scalar(coeffs):
+        a1, a2, a3, m0, m1, m2 = (float(c) for c in coeffs)
+        A = svf_transition(*(torch.tensor(c, dtype=dt, device=dev)
+                             for c in (a1, a2, a3)))
+    else:
+        a1, a2, a3, m0, m1, m2 = (
+            torch.as_tensor(c, dtype=dt, device=dev).expand(batch)
+            .unsqueeze(-1) for c in coeffs)
+        A = svf_transition(a1[..., 0], a2[..., 0], a3[..., 0])
+    bu = torch.stack([2.0 * a2 * x, 2.0 * a3 * x], dim=-1)
+    if state0 is None:
+        state0 = torch.zeros(batch + (2,), dtype=dt, device=dev)
+    pre, final = affine_scan_2x2(A, bu, state0)
+    ic1 = pre[..., 0]
+    ic2 = pre[..., 1]
+    v3 = x - ic2
+    v1 = a1 * ic1 + a2 * v3
+    v2 = ic2 + a2 * ic1 + a3 * v3
+    y = m0 * x + m1 * v1 + m2 * v2
+    sat = float(saturation)
+    if sat > 0.0:
+        if isinstance(simd_tanh, bool):
+            tanh_y = fast_tanh_eq_v(y) if simd_tanh else fast_tanh_eq(y)
+        else:
+            mask = torch.as_tensor(simd_tanh, device=dev).expand(batch)
+            tanh_y = torch.where(mask.unsqueeze(-1), fast_tanh_eq_v(y),
+                                 fast_tanh_eq(y))
+        y = y * (1.0 - sat) + tanh_y * sat
+    y = torch.where(torch.isfinite(y) & (y.abs() < STATE_ABS_MAX), y, 0.0)
+    return y.clamp(-OUTPUT_CLAMP, OUTPUT_CLAMP), final

@@ -282,7 +282,8 @@ def test_f64_throughput_partition_size_matches_jax_cpu(ir_len):
 
 
 def test_parity_and_sweep_import_no_jax():
-    code = ("import sys, convopeq_tpu_torch.parity, convopeq_tpu_torch.sweep;"
+    code = ("import sys, convopeq_tpu_torch.parity, convopeq_tpu_torch.sweep,"
+            " convopeq_tpu_torch.staged, convopeq_tpu_torch.models.metering;"
             "print('jax' in sys.modules, 'convopeq_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,

@@ -1,7 +1,9 @@
 """The port's host and signal functions against the reference binary's
 vectors (tests/ref_harness/vectors/*.json), at the tolerances of
 tests/test_ref_vectors.py, which holds the JAX package to the same dumps.
-Everything runs on the CPU in f64.
+Everything runs on the CPU in f64.  The staged chain's stages: the output
+filter (output_filter.json), the SVF band kernel (eq_kernel.json) and the
+whole EQ engine (eq_full.json).
 """
 import json
 from pathlib import Path
@@ -12,9 +14,11 @@ import torch
 
 from convopeq_tpu_torch.models.chain import (ChainConfig, _sanitize_and_trim,
                                              resolve_oversampling_factor)
+from convopeq_tpu_torch.models.eq import EQParams, eq_process
+from convopeq_tpu_torch.models.output_filter import output_filter_process
 from convopeq_tpu_torch.ops.dc_blocker import dc_block
 from convopeq_tpu_torch.ops.softclip import soft_clip, soft_clip_params
-from convopeq_tpu_torch.ops.svf import clamp_params, svf_coeffs
+from convopeq_tpu_torch.ops.svf import clamp_params, svf_coeffs, svf_process
 from convopeq_tpu_torch.utils.dsputil import equal_power_sin
 
 VEC = Path(__file__).resolve().parent / "ref_harness" / "vectors"
@@ -104,3 +108,101 @@ def test_equal_power_sin_matches_reference_binary():
     d = _load("engine_math.json")["equal_power_sin"]
     ours = np.array([float(equal_power_sin(x)) for x in d["x"]])
     np.testing.assert_allclose(ours, d["y"], rtol=0, atol=5e-16)
+
+
+@pytest.mark.parametrize("sr_tag,sr", [("48k", 48000.0), ("96k", 96000.0)])
+def test_output_filter_matches_reference_binary(sr_tag, sr):
+    """OutputFilter block outputs (dump_output_filter.cpp): the full HC x
+    LC grid (convolver last) and the LP modes (EQ last), both channels in
+    one call, atol 1e-9 as the JAX package's test."""
+    v = _load("output_filter.json")
+    x = torch.tensor(np.stack([v["input_l"], v["input_r"]]),
+                     dtype=torch.float64)
+    cases = [(True, hc, lc, 1, f"conv_{sr_tag}_hc{hc}_lc{lc}")
+             for hc in range(3) for lc in range(2)]
+    cases += [(False, 1, 0, lp, f"eq_{sr_tag}_lp{lp}") for lp in range(3)]
+    for conv_is_last, hc, lc, lp, key in cases:
+        y = output_filter_process(x, sr, conv_is_last, hc, lc, lp)
+        want = np.stack([v[f"{key}_l"], v[f"{key}_r"]])
+        np.testing.assert_allclose(y.numpy(), want, rtol=0, atol=1e-9,
+                                   err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def eq_kernel():
+    return _load("eq_kernel.json")
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_eq_kernel_matches_reference_binary(eq_kernel, case):
+    """The TPT-SVF band kernel against the reference's processBand /
+    processBandStereo (dump_eq_kernel.cpp, 2048 samples in four blocks
+    with the state carried): scalar (exact +-1 tanh) and stereo (SSE2
+    clamp form) outputs at atol 2e-11, states at rtol 2e-9."""
+    v = eq_kernel
+    b = v["bands"][case]
+    sr = float(v["sample_rate"])
+    xl = torch.tensor(v["input_l"], dtype=torch.float64)
+    xr = torch.tensor(v["input_r"], dtype=torch.float64)
+    f, g, q = (np.float64(np.float32(b[k])) for k in ("freq", "gain_db", "q"))
+    coeffs = tuple(float(c) for c in svf_coeffs(b["type"], f, g, q, sr))
+    sat = float(b["saturation"])
+    ys, st = svf_process(xl, coeffs, saturation=sat, simd_tanh=False)
+    np.testing.assert_allclose(ys.numpy(), b["scalar_out"], rtol=0,
+                               atol=2e-11)
+    np.testing.assert_allclose(st.numpy(), b["scalar_state"], rtol=2e-9,
+                               atol=1e-12)
+    y2, st2 = svf_process(torch.stack([xl, xr]), coeffs, saturation=sat,
+                          simd_tanh=True)
+    np.testing.assert_allclose(
+        y2.numpy(), np.stack([b["stereo_out_l"], b["stereo_out_r"]]),
+        rtol=0, atol=2e-11)
+    np.testing.assert_allclose(
+        st2.numpy(), np.stack([b["stereo_state_l"], b["stereo_state_r"]]),
+        rtol=2e-9, atol=1e-12)
+
+
+def _xs64_stereo(seed, n, scale):
+    """Interleaved L/R xorshift64* program of dump_eq_full.cpp, bit-exact
+    (tests/test_ref_vectors.py's)."""
+    mask = (1 << 64) - 1
+    s = seed
+    out = np.empty(2 * n)
+    for i in range(2 * n):
+        s ^= s >> 12
+        s = (s ^ (s << 25)) & mask
+        s ^= s >> 27
+        out[i] = ((((s * 2685821657736338717) & mask) >> 11)
+                  * (1.0 / 9007199254740992.0) - 0.5) * scale
+    return out[0::2], out[1::2]
+
+
+_EQ_FULL_CASES = [c["name"] for c in _load("eq_full.json")["cases"]]
+
+
+@pytest.mark.parametrize("name", _EQ_FULL_CASES)
+def test_eq_full_engine_matches_reference_binary(name):
+    """The whole EQProcessor (dump_eq_full.cpp: all nine TUs, the real
+    prepareToPlay -> setters -> process()): serial and parallel, M/S and
+    L/R modes, the enable and 0.01 dB skips, saturation, the block-rate
+    AGC, 96 kHz; atol 1e-13 x scale, 5e-8 where saturated."""
+    v = _load("eq_full.json")
+    c = next(c for c in v["cases"] if c["name"] == name)
+    B = int(v["block"])
+    p = EQParams()
+    p.enabled[:] = False
+    for bd in c["bands"]:
+        p.set_band(bd["idx"], band_type=bd["type"], freq=bd["freq"],
+                   gain_db=bd["gain"], q=bd["q"], mode=bd["mode"],
+                   enabled=True)
+    p.structure = int(c["structure"])
+    p.saturation = float(c["saturation"])
+    p.agc_enabled = bool(c["agc"])
+    L, R = _xs64_stereo(int(c["seed"]), B * int(v["nblocks"]),
+                        float(c["in_scale"]))
+    y = eq_process(torch.from_numpy(np.stack([L, R])), p, float(c["sr"]),
+                   block_size=B).numpy()
+    want = np.stack([c["out_l"], c["out_r"]])
+    tol = 5e-8 if float(c["saturation"]) > 0 else 1e-13
+    np.testing.assert_allclose(y, want, rtol=0,
+                               atol=tol * max(1.0, np.abs(want).max()))
