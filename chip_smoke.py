@@ -51,7 +51,8 @@
    prefilter at 60 s; p = 16384, P = 8, K = 176: the fused2 near layer;
    p = 4096, P = 5, K = 118: the room IR's L1 at 10 s; p = 65536, P = 8;
    p = 2048, P = 4, K = 469: the staged chain's blocked EQ at 20 s,
-   bench_all's 4 streams): max |diff| <=
+   bench_all's 4 streams; p = 8192, P = 4, K = 235: config3_staged's EQ
+   at 192 kHz, 4 streams x 10 s): max |diff| <=
    1e-4 x max |plain| (tests/test_pallas.py's bound for the TPU kernel),
    finite; the kernel's, the plain version's, the three frame kernels'
    and the library transforms' times (CUDA events, median of 7), the
@@ -59,6 +60,10 @@
    forward's pass 1, the fused row pass, the packed inverse's pass 2) as
    in 3.  It runs right after 3c: placed after phase 6, torch.profiler
    traced no kernel of it on an H100.
+7b. The three frame kernels of each type against their plain versions at
+   the oversampled lines' partition sizes (config3_staged's NUC layers
+   p 2048 x 12 and 16384 x 23, config3's p 8192 x 43; C 8, K 64), at the
+   tolerances of 3 and 3b.
 8. The prefilter chain (1M-tap IR as the reference's 3-layer NUC, the
    EQ, DC blockers, output filter and HC/LC curve folded into an
    8192 x 8 prefilter): (a) 4 streams x 10 s f32 kernels against the f64
@@ -100,14 +105,35 @@
    (tests/test_precision.py's eq_scan bound), and the device time of
    the cascade and of the AGC alone; (d) the realtime factor, spread
    and peak memory of the eight lines at 64 streams x 20 s.
-13. A JSON line of the kernels (launches: the f32 frame kernels' and the
+13. Oversampling and config3: (a) the halfband cascades alone, r2, r4
+   and r8 up -> down at 64 streams x 20 s of 48 kHz input, f32 against
+   the same function in f64 on the card (relative RMS <= 1e-5,
+   tests/test_precision.py's bound), each direction's device time in
+   both types, and the round trip's DC gain (0.75 at r2, the reference's
+   quirk); (b) bench config3 (`config3.py`: the 2 s IR resampled to
+   192 kHz, the planner's gains, the whole 4x chain folded) in both
+   orders, f32 through rows 1-3 (<= 2e-5) and f64 through rows 6-8 only
+   (<= 1e-12) against the f64 plain path, with the realtime factor,
+   spread and peak memory at 64 x 20 s, and the MAC at config3's shape
+   (p 8192, P 43) against its plain version with its bounds by bytes and
+   by operations; (c) the fold against the staged chain in f64 on the
+   card (the staged NUC unfiltered, the fold without the HC/LC curve,
+   4 x 10 s, both orders, relative RMS < 3e-9); (d) config3_staged
+   (`staged.os_lines`: the same chain staged at 4x, the NUC at block
+   2048) and its f64 twin with 12a-b's checks and limits, the plain
+   soft clip at 4x (4 x 2 s, saturation
+   0.3, f32 against the f64 plain path at the line's f32 limit), and
+   both lines' realtime factor.
+14. A JSON line of the kernels (launches: the f32 frame kernels' and the
    fused kernel's from the prefilter chain's run of phase 8a, the
    quantizer's from config6's of phase 6a, the f64 kernels' from the f64
    headline's of phase 11a, osa_rfft's from the self-check path of 3c;
-   every path's counts beside them, the staged lines' included), the
-   card's name and power limit, then the result line.
+   every path's counts beside them, the staged lines' and config3's
+   included; the MACs' rows also carry their time at config3's shape),
+   the card's name and power limit, then the result line.
 Any failure raises, and the script exits non-zero.
 """
+import dataclasses
 import json
 import math
 import statistics
@@ -119,13 +145,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from convopeq_tpu_torch import config6, headline, nuc3, parity, staged
+from convopeq_tpu_torch import config3, config6, headline, nuc3, parity, staged
 from convopeq_tpu_torch.device import card_description
 from convopeq_tpu_torch.models import dither
 from convopeq_tpu_torch.models import eq as eq_model
+from convopeq_tpu_torch.models.chain import (
+    StagedChain, prepare_folded_convolver_oversampled, process_chain,
+    process_chain_fused)
+from convopeq_tpu_torch.models.convolver import stereo_prepare
+from convopeq_tpu_torch.models.nuc import FilterSpec
 from convopeq_tpu_torch.ops import _build
 from convopeq_tpu_torch.ops import frame_conv_kernels as fk
 from convopeq_tpu_torch.ops import fused_conv_kernels as fc
+from convopeq_tpu_torch.ops import oversample
 from convopeq_tpu_torch.ops import quantize_kernels as qk
 from convopeq_tpu_torch.ops.partitioned_conv import uniform_partitioned_conv
 
@@ -153,10 +185,14 @@ REPLACES = {
 }
 # fused kernel check shapes (C, K, p, P): the prefilter at 60 s, the
 # fused2 near layer at 60 s, the room IR's L1 at 10 s, the largest
-# partition the kernel takes (its row pass at 256 threads a block), and
-# the staged chain's blocked EQ (eq20: tail 7,903 taps) at 20 s
+# partition the kernel takes (its row pass at 256 threads a block), the
+# staged chain's blocked EQ (eq20: tail 7,903 taps) at 20 s, and
+# config3_staged's EQ at 192 kHz (tail 31,612 taps) at 10 s
 FUSED_SHAPES = [(8, 352, 8192, 8), (8, 176, 16384, 8), (8, 118, 4096, 5),
-                (8, 44, 65536, 8), (8, 469, 2048, 4)]
+                (8, 44, 65536, 8), (8, 469, 2048, 4), (8, 235, 8192, 4)]
+# frame kernel check shapes (p, P) of the oversampled lines: the staged
+# NUC's layers at block 2048 (config3_staged) and config3's folded layer
+LAYER_SHAPES = [(2048, 12), (8192, 43), (16384, 23)]
 # one H100 SXM (NVIDIA's data sheet): device memory rate, f32 and f64
 # rates outside the tensor cores
 MEM_BYTES_S = 3.35e12
@@ -411,6 +447,45 @@ def phase_self_check(card):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}, launches
+
+
+def phase_layer_shapes(card):
+    """7b: the three frame kernels of each type against their plain
+    versions at the partition sizes of the oversampled lines (LAYER_SHAPES,
+    C 8, K 64), at phase 3's and 3b's tolerances."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for dtype in (torch.float32, torch.float64):
+        f64 = dtype == torch.float64
+        names = fk.F64_KERNELS if f64 else fk.F32_KERNELS
+        for p, P in LAYER_SHAPES:
+            frames = torch.randn((8, 64, p), generator=gen, device=dev,
+                                 dtype=dtype)
+            H = torch.complex(
+                torch.randn((P, p + 1), generator=gen, device=dev,
+                            dtype=dtype),
+                torch.randn((P, p + 1), generator=gen, device=dev,
+                            dtype=dtype))
+            X_plain = fk.frames_rfft_plain(frames)
+            Y_plain = fk.causal_mac_plain(X_plain, H)
+            y_plain = fk.irfft_valid_plain(Y_plain)
+            errs = []
+            for name, out, ref in (
+                    (names[0], fk.frames_rfft(frames), X_plain),
+                    (names[1], fk.causal_mac(X_plain, H), Y_plain),
+                    (names[2], fk.irfft_valid(Y_plain), y_plain)):
+                err = float((out - ref).abs().max())
+                scale = float(ref.abs().max())
+                if name.startswith("irfft_valid"):
+                    scale = max(1.0, scale)
+                tol = (1e-12 if f64 else 2e-5) * scale
+                errs.append(f"{name} {err:.3e} (tol {tol:.3e})")
+                check(err <= tol and bool(torch.isfinite(out).all()),
+                      f"{name} disagrees with its plain version at p={p} "
+                      f"P={P}")
+            print(f"frame kernels at p={p} P={P} (C=8 K=64, "
+                  f"{str(dtype)[6:]}): max|diff| {'; '.join(errs)} [{card}]")
+            del frames, H, X_plain, Y_plain, y_plain
 
 
 def phase_headline(card):
@@ -984,6 +1059,57 @@ def staged_must_launch(line):
     return sorted(names)
 
 
+def check_staged_line(line, twin, card):
+    """12a-b for one staged line: `line` in f32 through the kernels and
+    its f64 `twin` through the f64 kernels, each at staged.FIDELITY_SHAPE
+    against the twin's f64 plain path; returns both runs' counts."""
+    batch, seconds = staged.FIDELITY_SHAPE
+    must = staged_must_launch(line)
+    # (a) f32 through the kernels against the f64 plain path
+    x = staged.signal(batch, seconds, "cuda")
+    y, rel, launches = staged.fidelity(line, twin, x)
+    finite = bool(torch.isfinite(y).all())
+    print(f"{line.name} {batch}x{seconds:g}s f32 kernels vs f64 plain: rel "
+          f"RMS {rel:.3e} (tol {line.limit:g}), finite {finite}, shape "
+          f"{tuple(y.shape)}, launches {launches} (must: {must}) "
+          f"[{card}]")
+    check(y.shape == x.shape and finite, f"{line.name} output finite, shaped")
+    check(rel <= line.limit, f"{line.name} matches the f64 plain path")
+    check(all(launches[n] > 0 for n in must),
+          f"{line.name}: every kernel of its plan launched ({must})")
+    # (b) the f64 twin through the f64 kernels against the same
+    y64, rel64, launches64 = staged.fidelity(twin, twin, x.double())
+    finite = bool(torch.isfinite(y64).all())
+    floor = staged.ulp_floor(twin, x)
+    print(f"{twin.name} {batch}x{seconds:g}s f64 kernels vs f64 plain: "
+          f"rel RMS {rel64:.3e} (tol {twin.limit:g}; the plain path "
+          f"moves {floor:.3e} under a 1-ulp input change), finite "
+          f"{finite}, launches {launches64} [{card}]")
+    check(y64.shape == x.shape and finite,
+          f"{twin.name} output finite, shaped")
+    check(rel64 <= twin.limit, f"{twin.name} matches the f64 plain path")
+    check(all(launches64[n] == 0 for n in [*fk.F32_KERNELS, "fused_conv"]),
+          f"{twin.name}: no f32 frame kernel and no fused kernel")
+    if twin.chain.convolver is not None:
+        check(all(launches64[n] > 0 for n in fk.F64_KERNELS),
+              f"{twin.name}: every f64 frame kernel launched")
+    return launches, launches64
+
+
+def staged_rtf(line, card):
+    """12d for one line: its realtime factor, spread and peak memory at
+    staged.RTF_SHAPE."""
+    batch, seconds = staged.RTF_SHAPE
+    xt = staged.signal(batch, seconds, "cuda", line.dtype)
+    row = staged.measure_rtf(line, xt)
+    report_rtf(line.name, batch, seconds, row["walls_s"],
+               row["peak_gib"] * 2 ** 30, card,
+               "f64" if line.dtype == torch.float64 else "f32")
+    del xt
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_staged(card):
     """Phase 12: the staged lines, f32 and their f64 twins; returns the
     counts by line."""
@@ -996,53 +1122,14 @@ def phase_staged(card):
     print(f"staged lines prepare (f32, f64): {time.perf_counter() - t0:.2f} "
           f"s; convolver layers {plans} [{card}]")
     by_path = {}
-    batch, seconds = staged.FIDELITY_SHAPE
     for name in staged.LINE_NAMES:
-        line, twin = lines32[name], lines64[name + "_f64"]
-        must = staged_must_launch(line)
-        # (a) f32 through the kernels against the f64 plain path
-        x = staged.signal(batch, seconds, "cuda")
-        y, rel, launches = staged.fidelity(line, twin, x)
-        finite = bool(torch.isfinite(y).all())
-        print(f"{name} {batch}x{seconds:g}s f32 kernels vs f64 plain: rel "
-              f"RMS {rel:.3e} (tol {line.limit:g}), finite {finite}, shape "
-              f"{tuple(y.shape)}, launches {launches} (must: {must}) "
-              f"[{card}]")
-        check(y.shape == x.shape and finite, f"{name} output finite, shaped")
-        check(rel <= line.limit, f"{name} matches the f64 plain path")
-        check(all(launches[n] > 0 for n in must),
-              f"{name}: every kernel of its plan launched ({must})")
-        by_path[name] = launches
-        # (b) the f64 twin through the f64 kernels against the same
-        y64, rel64, launches64 = staged.fidelity(twin, twin, x.double())
-        finite = bool(torch.isfinite(y64).all())
-        floor = staged.ulp_floor(twin, x)
-        print(f"{twin.name} {batch}x{seconds:g}s f64 kernels vs f64 plain: "
-              f"rel RMS {rel64:.3e} (tol {twin.limit:g}; the plain path "
-              f"moves {floor:.3e} under a 1-ulp input change), finite "
-              f"{finite}, launches {launches64} [{card}]")
-        check(y64.shape == x.shape and finite,
-              f"{twin.name} output finite, shaped")
-        check(rel64 <= twin.limit, f"{twin.name} matches the f64 plain path")
-        check(all(launches64[n] == 0 for n in [*fk.F32_KERNELS,
-                                                "fused_conv"]),
-              f"{twin.name}: no f32 frame kernel and no fused kernel")
-        if twin.chain.convolver is not None:
-            check(all(launches64[n] > 0 for n in fk.F64_KERNELS),
-                  f"{twin.name}: every f64 frame kernel launched")
-        by_path[twin.name] = launches64
-        del x, y, y64
+        twin = lines64[name + "_f64"]
+        by_path[name], by_path[twin.name] = check_staged_line(
+            lines32[name], twin, card)
     phase_staged_cascade(card)
     # (d) throughput of the eight lines
-    batch, seconds = staged.RTF_SHAPE
     for line in [*lines32.values(), *lines64.values()]:
-        xt = staged.signal(batch, seconds, "cuda", line.dtype)
-        row = staged.measure_rtf(line, xt)
-        report_rtf(line.name, batch, seconds, row["walls_s"],
-                   row["peak_gib"] * 2 ** 30, card,
-                   "f64" if line.dtype == torch.float64 else "f32")
-        del xt
-        torch.cuda.empty_cache()
+        staged_rtf(line, card)
     return by_path
 
 
@@ -1089,6 +1176,201 @@ def phase_staged_cascade(card):
         check(rel <= 1e-5, f"EQ cascade {tag} f32 matches f64")
 
 
+CASCADE_SHAPE = (64, 20.0)     # streams, seconds of 48 kHz input
+
+
+def phase_cascade(card):
+    """13a: the halfband cascades alone, r2, r4 and r8 up -> down in f32
+    and f64 on the card: the f32 output against the f64 one (the same
+    function on the card, limit 1e-5: tests/test_precision.py:142-144),
+    each direction's device time (CUDA events, median of 3) and the round
+    trip's DC gain (0.75 at r2, the reference's quirk)."""
+    batch, seconds = CASCADE_SHAPE
+    x = staged.signal(batch, seconds, "cuda")
+    for ratio in (2, 4, 8):
+        st = oversample.make_stages(ratio)
+        up = lambda v: oversample.oversample_up(v, st)
+        rt = lambda v: oversample.oversample_down(up(v), st)
+        y32 = rt(x)
+        y64 = rt(x.double())
+        rel = parity.rel_rms(y32, y64)
+        finite = bool(torch.isfinite(y32).all())
+        del y32, y64
+        ms = {}
+        for dt in (torch.float32, torch.float64):
+            xd = x.to(dt)
+            u = up(xd)
+            tag = "f64" if dt == torch.float64 else "f32"
+            ms[f"up_{tag}"] = time_ms(lambda: up(xd), reps=3)
+            ms[f"down_{tag}"] = time_ms(
+                lambda: oversample.oversample_down(u, st), reps=3)
+            del xd, u
+        one = torch.ones((1, 4096), dtype=torch.float64, device="cuda")
+        dc = float(rt(one)[0, -256:].mean())
+        print(f"oversampling r{ratio} ({[s_.taps for s_ in st]} taps) "
+              f"{batch}x{seconds:g}s up -> down: f32 vs f64 rel RMS "
+              f"{rel:.3e} (tol 1e-05), finite {finite}; device ms "
+              f"{ {k: round(v, 3) for k, v in ms.items()} }; round-trip DC "
+              f"gain {dc:.6f} [{card}]")
+        check(finite and rel <= 1e-5, f"r{ratio} cascade f32 matches f64")
+        if ratio == 2:
+            check(abs(dc - 0.75) <= 1e-6, "r2 round trip DC gain 0.75")
+        torch.cuda.empty_cache()
+    del x
+
+
+def mac_at_shape(card, C_, K_, p, P, dtype):
+    """The MAC of `dtype` at one path's shape against its plain version:
+    times (CUDA events, median of 7) beside the library call's, and the
+    bound by bytes and by operations; returns the row."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B = p + 1
+    X = torch.complex(*(torch.randn((C_, K_, B), generator=gen, device=dev,
+                                    dtype=dtype) for _ in range(2)))
+    H = torch.complex(*(torch.randn((P, B), generator=gen, device=dev,
+                                    dtype=dtype) for _ in range(2)))
+    f64 = dtype == torch.float64
+    ref = fk.causal_mac_plain(X, H)
+    out = fk.causal_mac(X, H)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(err <= (1e-12 if f64 else 2e-5) * scale,
+          "causal_mac at config3's shape disagrees with its plain version")
+    item = X.real.element_size()
+    nbytes = 2 * C_ * K_ * B * 2 * item + P * B * 2 * item
+    ops = 8 * B * C_ * sum(min(k + 1, P) for k in range(K_))
+    rate = F64_OPS_S if f64 else F32_OPS_S
+    row = {"shape": [C_, K_, p, P], "max_abs_err": err,
+           "ms": time_ms(lambda: fk.causal_mac(X, H)),
+           "plain_ms": time_ms(lambda: fk.causal_mac_plain(X, H), reps=3),
+           "library_ms": time_ms(lambda: mac_library(X, H), reps=3),
+           "bytes_ms": nbytes / MEM_BYTES_S * 1e3,
+           "operations_ms": ops / rate * 1e3}
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, rate)
+    name = "causal_mac_c128" if f64 else "causal_mac"
+    print(f"{name} at config3's shape (C={C_} K={K_} p={p} P={P}): max|diff| "
+          f"{err:.3e} (rel {err / scale:.3e}); kernel {row['ms']:.3f} ms, "
+          f"plain {row['plain_ms']:.3f}, library {row['library_ms']:.3f}, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
+          f"{row['bytes_ms']:.4f}, operations {row['operations_ms']:.4f}) "
+          f"[{card}]")
+    return row
+
+
+def phase_config3(card):
+    """13b: bench config3 in both orders through `config3.py`'s lines, in
+    f32 (rows 1-3 launched) and f64 (rows 6-8 only), against the f64
+    plain path (2e-5, 1e-12), with RTF, spread and peak memory at 64 x
+    20 s, and the MAC at config3's shape; 13c: the fold against the
+    staged chain in f64 on the card (the staged NUC unfiltered, the fold
+    without the HC/LC curve, 4 x 10 s, both orders, < 3e-9).  Returns
+    the counts by line and the MAC rows."""
+    t0 = time.perf_counter()
+    setup = staged.config3_setup()
+    t_setup = time.perf_counter() - t0
+    lines32 = config3.config3_lines("cuda", torch.float32, setup)
+    lines64 = config3.config3_lines("cuda", torch.float64, setup)
+    pin = setup.planner_input
+    print(f"config3 set-up: {t_setup:.2f} s (IR {setup.ir.shape} -> "
+          f"{setup.ir_hf.shape} at 192 kHz, planner input "
+          f"{pin.eq_max_gain_db:.3f} dB / Q {pin.eq_max_q} / "
+          f"{pin.ir_freq_peak_gain_db:.3f} dB); folds (x4) "
+          f"{time.perf_counter() - t0 - t_setup:.2f} s; "
+          f"{ {n: l.info for n, l in lines32.items()} } [{card}]")
+    by_path = {}
+    batch, seconds = staged.FIDELITY_SHAPE
+    for line in [*lines32.values(), *lines64.values()]:
+        f64 = line.dtype == torch.float64
+        reference = lines64[line.name.removesuffix("_f64") + "_f64"]
+        x = staged.signal(batch, seconds, "cuda", line.dtype)
+        y, rel, launches = staged.fidelity(line, reference, x)
+        finite = bool(torch.isfinite(y).all())
+        print(f"{line.name} {batch}x{seconds:g}s {'f64' if f64 else 'f32'} "
+              f"kernels vs f64 plain: rel RMS {rel:.3e} (tol {line.limit:g}),"
+              f" finite {finite}, shape {tuple(y.shape)}, launches "
+              f"{launches} [{card}]")
+        check(y.shape == x.shape and finite, f"{line.name} output finite")
+        check(rel <= line.limit, f"{line.name} matches the f64 plain path")
+        own, other = ((fk.F64_KERNELS, [*fk.F32_KERNELS, "fused_conv"])
+                      if f64 else (fk.F32_KERNELS, fk.F64_KERNELS))
+        check(all(launches[n] > 0 for n in own)
+              and all(launches[n] == 0 for n in other),
+              f"{line.name}: its frame kernels launched, no others")
+        by_path[line.name] = launches
+        del x, y
+    # 13c: the fold against the staged chain, f64 on the card
+    x = staged.signal(batch, seconds, "cuda", torch.float64)
+    conv = stereo_prepare(torch.as_tensor(setup.ir_hf), 2048,
+                          FilterSpec(staged.CONFIG3_RATE),
+                          apply_spectrum_filter=False, device="cuda")
+    for name, (order, tag) in config3.ORDERS.items():
+        cfg, _g = staged.config3_config(order, pin)
+        state = prepare_folded_convolver_oversampled(
+            setup.ir_hf, config3.BLOCK_SIZE,
+            FilterSpec(staged.CONFIG3_RATE), cfg, staged.eq20(), dtype=torch.float64,
+            fold_spectrum_curve=False, device="cuda")
+        y_fold = process_chain_fused(x, cfg, state)
+        y_staged = process_chain(x, cfg, staged.eq20(), conv)
+        rel = parity.rel_rms(y_fold, y_staged)
+        print(f"config3 {tag} fold vs staged chain (f64, NUC unfiltered, no"
+              f" HC/LC curve) {batch}x{seconds:g}s: rel RMS {rel:.3e} (tol "
+              f"3e-09) [{card}]")
+        check(rel < 3e-9, f"config3 {tag}: the fold matches the staged chain")
+        del state, y_fold, y_staged
+    del x, conv
+    # RTF of the four lines
+    for line in [*lines32.values(), *lines64.values()]:
+        staged_rtf(line, card)
+    # the MAC at config3's shape: 64 streams x 20 s, p 8192, P 43
+    lp = next(iter(lines32.values())).chain.convolver.plans[0].layers[0]
+    K_ = -(-int(staged.RTF_SHAPE[1] * staged.SAMPLE_RATE) // lp.part_size)
+    mac_rows = {
+        "causal_mac": mac_at_shape(card, 2 * staged.RTF_SHAPE[0], K_,
+                                   lp.part_size, lp.num_parts,
+                                   torch.float32),
+        "causal_mac_c128": mac_at_shape(card, 2 * staged.RTF_SHAPE[0], K_,
+                                        lp.part_size, lp.num_parts,
+                                        torch.float64)}
+    return by_path, mac_rows
+
+
+def phase_config3_staged(card):
+    """13d: config3_staged and its f64 twin through `staged.py`'s line
+    (12a-b's checks, then the RTF), and the plain soft clip at 4x: 4 x
+    2 s with soft_clip_enabled, saturation 0.3, f32 through the kernels
+    against the f64 plain path, the line's f32 limit."""
+    t0 = time.perf_counter()
+    line = staged.os_lines("cuda", torch.float32)["config3_staged"]
+    twin = staged.os_lines("cuda", torch.float64)["config3_staged_f64"]
+    print(f"config3_staged prepare (f32, f64): {time.perf_counter() - t0:.2f}"
+          f" s; {line.info} [{card}]")
+    by_path = {}
+    by_path[line.name], by_path[twin.name] = check_staged_line(line, twin,
+                                                               card)
+    cfg = dataclasses.replace(line.chain.cfg, soft_clip_enabled=True,
+                              saturation_amount=0.3)
+    clip32 = StagedChain(cfg, line.chain.eq_params, line.chain.convolver.state)
+    clip64 = StagedChain(cfg, twin.chain.eq_params, twin.chain.convolver.state)
+    x = staged.signal(4, 2.0, "cuda")
+    reset_launches()
+    y = clip32(x)
+    torch.cuda.synchronize()
+    launches = launches_now()
+    rel = parity.rel_rms(y, clip64(x.double(), frame_mac="plain"))
+    finite = bool(torch.isfinite(y).all())
+    print(f"config3_staged with the soft clip at 4x (saturation 0.3) 4x2s "
+          f"f32 kernels vs f64 plain: rel RMS {rel:.3e} (tol "
+          f"{line.limit:g}), finite {finite}, launches {launches} [{card}]")
+    check(finite and y.shape == x.shape and rel <= line.limit,
+          "config3_staged with the soft clip matches the f64 plain path")
+    del x, y, clip32, clip64
+    for ln in (line, twin):
+        staged_rtf(ln, card)
+    return by_path
+
+
 def main():
     card = phase_environment()
     phase_build(card)
@@ -1096,6 +1378,7 @@ def main():
     rows.update(phase_kernels(card, torch.float64))
     rows["osa_rfft"], self_check = phase_self_check(card)
     rows["fused_conv"] = phase_fused_kernel(card)
+    phase_layer_shapes(card)
     headline_rtf = phase_headline(card)
     rows["error_feedback_quantize"] = phase_quantizer(card)
     config6_launches = phase_config6(card)
@@ -1105,6 +1388,10 @@ def main():
     by_path["roomcorr"] = phase_roomcorr(card)
     by_path.update(phase_parity(card))
     by_path.update(phase_staged(card))
+    phase_cascade(card)
+    config3_launches, mac_rows = phase_config3(card)
+    by_path.update(config3_launches)
+    by_path.update(phase_config3_staged(card))
     by_path["self_check"] = self_check
     f64 = by_path["headline_f64"]
     launches = {**by_path["prefilter"], "error_feedback_quantize":
@@ -1114,6 +1401,7 @@ def main():
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name], **rows[name],
+         **({"config3": mac_rows[name]} if name in mac_rows else {}),
          "launches_by_path": {k: v[name] for k, v in by_path.items()}}
         for name in SOURCES]}))
     print(card)

@@ -5,8 +5,8 @@ sees a JAX object): each channel's `layer_spectra` and direct-head taps
 as numpy arrays and the plan (with each layer's damping) as plain
 numbers; a folded prefilter's spectra as a numpy array; a learned
 coefficient bank store as its dict of plain numbers
-(`AdaptiveCoefficientBanks.to_dict()`); EQ parameters as their numpy
-fields.  From the same prepared state both packages compute the same
+(`AdaptiveCoefficientBanks.to_dict()`); EQ parameters and halfband
+stages as their numpy fields.  From the same prepared state both packages compute the same
 output.
 
 Spectra come as complex arrays or, as the JAX package holds f64 spectra
@@ -24,6 +24,7 @@ from .models.convolver import StereoConvolverState
 from .models.eq import NUM_BANDS, EQParams
 from .models.learner import AdaptiveCoefficientBanks
 from .models.nuc import NUCLayerPlan, NUCPlan, NUCState
+from .ops.oversample import HalfbandStage
 
 
 def _spectra(H) -> np.ndarray:
@@ -122,3 +123,21 @@ def eq_params_from_arrays(band_types, freqs, gains_db, qs, modes, enabled,
     return EQParams(**{k: a.copy() for k, a in fields.items()},
                     structure=int(structure), saturation=float(saturation),
                     agc_enabled=bool(agc_enabled))
+
+
+def halfband_stage_from_arrays(taps: int, center_tap: int,
+                               center_parity: int, conv_parity: int, conv,
+                               center_delay: int,
+                               center_gain: float) -> HalfbandStage:
+    """The port's HalfbandStage from the JAX stage's fields: the tap count,
+    center tap M, the two phase parities, the non-zero arm's coefficients
+    (a 1-D array), the center delay in input samples and the center
+    phase's gain."""
+    conv = np.array(conv, np.float64)
+    if conv.ndim != 1 or len(conv) != (taps - conv_parity + 1) // 2:
+        raise ValueError(f"conv arm of shape {conv.shape} for {taps} taps")
+    return HalfbandStage(taps=int(taps), center_tap=int(center_tap),
+                         center_parity=int(center_parity),
+                         conv_parity=int(conv_parity), conv=conv,
+                         center_delay=int(center_delay),
+                         center_gain=float(center_gain))

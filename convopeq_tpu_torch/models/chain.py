@@ -1,15 +1,18 @@
 """The chains (counterpart of convopeq_tpu/models/chain.py): the staged
-chain at 1x and the folded ones.
+chain and the folded ones.
 
 The staged chain (`process_chain`, `StagedChain`; JAX :95-184, :776-789)
 runs every stage as a signal pass on the device, in the reference order:
-sanitize -> input headroom -> input DC blocker (3 Hz) -> EQ and
-convolver in `cfg.order` (the trim gain before the convolver on the
-EQ->conv order) -> output filter (HC + LC when the convolver is last,
-else HPF + LP) -> makeup -> local 2x soft clip -> output DC blocker ->
-output headroom.  It is the general chain: EQ saturation, AGC, mid/side
-or single-channel bands, the parallel band structure and the soft clip
-all run as such.  Only os_factor == 1 is ported.
+sanitize -> input headroom -> input DC blocker (3 Hz) -> [oversampling:
+the up cascade (ops/oversample.py), then the 1 Hz DC blocker at the
+processing rate] -> EQ and convolver in `cfg.order` (the trim gain
+before the convolver on the EQ->conv order; the EQ's AGC block
+`agc_block_size` x os_factor) -> output filter (HC + LC when the
+convolver is last, else HPF + LP) -> makeup -> soft clip (the local 2x
+form at 1x, the plain clip at the processing rate when oversampled) ->
+[the down cascade] -> output DC blocker -> output headroom.  It is the
+general chain: EQ saturation, AGC, mid/side or single-channel bands,
+the parallel band structure and the soft clip all run as such.
 
 When every stage around the convolver is LTI (no soft clip, no AGC, no
 oversampling, wet-only mix, EQ bands all-stereo or bypassed), the input
@@ -33,6 +36,12 @@ gains (None), or as the two-level "fused2" plan: a near layer of 8
 partitions, which rides the fused P <= 8 kernel, and a far layer at 8x
 the partition (capped at the frame kernels' largest) for the rest.
 
+`prepare_folded_convolver_oversampled` (JAX :598-775) folds the whole
+oversampled linear chain into one base-rate IR by the polyphase identity
+(`_os_composite_taps`): the run-time chain is again
+`process_chain_fused`.  It is how bench config3 rides the frame kernels
+(`config3.py`).
+
 The semi-fold for soft-clip chains (`prepare_semi_folded_convolver`,
 `process_chain_semi_fused`, `SemiFoldedChain`; JAX :538-595): the LTI
 prefix (input DC blocker, EQ, convolver, output filter, HC/LC curve)
@@ -51,16 +60,15 @@ from ..ops.dc_blocker import dc_block, dc_blocker_alphas
 from ..ops.frame_conv_kernels import MAX_PART
 from ..ops.fused_conv_kernels import MAX_FUSED_PARTS, fused_conv_supported
 from ..ops.partitioned_conv import partition_spectra, uniform_partitioned_conv
-from ..ops.softclip import soft_clip_local2x, soft_clip_params
+from ..ops.oversample import (PRESET_IIR_LIKE, _stage_full_response,
+                              make_stages, oversample_down, oversample_up)
+from ..ops.softclip import soft_clip, soft_clip_local2x, soft_clip_params
 from ..utils.dsputil import K_OUTPUT_HEADROOM, next_pow2
 from .convolver import (StereoConvolver, StereoConvolverState,
                         convolver_process, stereo_prepare)
 from .eq import EQParams, eq_process
 from .gain_planner import CONVOLVER_THEN_EQ, EQ_THEN_CONVOLVER
 from .output_filter import HC_NATURAL, LC_NATURAL, output_filter_process
-
-PRESET_IIR_LIKE = 0   # ops/oversample.py preset (oversampling not ported)
-
 
 def resolve_oversampling_factor(requested: int, sample_rate: float) -> int:
     """OversamplingPolicy::resolve (src/audioengine/OversamplingPolicy.h:51-86):
@@ -112,26 +120,29 @@ def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
                   mix_ramp=None, frame_mac="auto"):
     """Run the staged chain on x (..., 2, N), time last, on x's device.
 
-    mix_ramp: optional per-sample wet/dry mix (N,), which overrides
-    cfg.wet_dry_mix (see `convolver.linear_mix_ramp`).  frame_mac passes
-    through to the convolver's partitioned convolutions ("plain": the
-    plain frame steps on any device).  Oversampling (os_factor > 1) is
-    not ported and raises."""
+    mix_ramp: optional per-sample wet/dry mix (N x os_factor,) at the
+    processing rate, which overrides cfg.wet_dry_mix (see
+    `convolver.linear_mix_ramp`).  frame_mac passes through to the
+    convolver's partitioned convolutions ("plain": the plain frame steps
+    on any device)."""
     sr = cfg.sample_rate
     os_factor = resolve_oversampling_factor(cfg.oversampling_factor, sr)
-    if os_factor > 1:
-        raise NotImplementedError(
-            f"process_chain at os_factor {os_factor}: oversampling is not "
-            "ported yet (ROADMAP.md section 1, item 2)")
+    proc_rate = sr * os_factor
     x = _sanitize(x)
     if cfg.input_headroom_gain != 1.0:
         x = x * cfg.input_headroom_gain
     x, _ = dc_block(x, sr, 3.0)
+    stages = (make_stages(os_factor, cfg.oversampling_preset)
+              if os_factor > 1 else [])
+    if stages:
+        x = oversample_up(x, stages)
+        x, _ = dc_block(x, proc_rate, 1.0)
     conv_active = (not cfg.conv_bypassed) and conv_state is not None
     eq_active = (not cfg.eq_bypassed) and eq_params is not None
 
     def run_eq(sig):
-        return eq_process(sig, eq_params, sr, block_size=cfg.agc_block_size,
+        return eq_process(sig, eq_params, proc_rate,
+                          block_size=cfg.agc_block_size * os_factor,
                           method=cfg.eq_method)
 
     def run_conv(sig):
@@ -153,12 +164,16 @@ def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
     if conv_active or eq_active:
         conv_is_last = conv_active and (
             not eq_active or cfg.order == EQ_THEN_CONVOLVER)
-        x = output_filter_process(x, sr, conv_is_last, cfg.conv_hc_mode,
-                                  cfg.conv_lc_mode, cfg.eq_lpf_mode)
+        x = output_filter_process(x, proc_rate, conv_is_last,
+                                  cfg.conv_hc_mode, cfg.conv_lc_mode,
+                                  cfg.eq_lpf_mode)
     if cfg.output_makeup_gain != 1.0:
         x = x * cfg.output_makeup_gain
     if cfg.soft_clip_enabled:
-        x = soft_clip_local2x(x, *soft_clip_params(cfg.saturation_amount))
+        clip = soft_clip if stages else soft_clip_local2x
+        x = clip(x, *soft_clip_params(cfg.saturation_amount))
+    if stages:
+        x = oversample_down(x, stages)
     x, _ = dc_block(x, sr, 3.0)
     if cfg.apply_output_headroom:
         x = x * K_OUTPUT_HEADROOM
@@ -448,6 +463,160 @@ def _prepare_fused2(combined, block_size: int, p_near: int = 16384,
     return StereoConvolverState(left=prep(combined[0]),
                                 right=prep(combined[1]))
 
+
+def _os_composite_taps(stages, for_up: bool) -> np.ndarray:
+    """Dense taps of the whole up (or down) halfband cascade at the final
+    processing rate, by the noble identity: each stage's polyphase-merged
+    filter (`_stage_full_response`) is zero-stuffed to the final rate and
+    the results convolve.  Up cascade (stage order 0..k): G = g_k *
+    stuff2(g_{k-1}) * stuff4(g_{k-2}) ...; the down cascade (applied
+    reversed) has the same structure with the decimator taps."""
+    G = np.ones(1, np.float64)
+    for i, st in enumerate(stages):
+        g = _stage_full_response(st, for_up)
+        stuff = 2 ** (len(stages) - 1 - i)
+        if stuff > 1:
+            gs = np.zeros((len(g) - 1) * stuff + 1, np.float64)
+            gs[::stuff] = g
+            g = gs
+        G = np.convolve(G, g)
+    return G
+
+
+def prepare_folded_convolver_oversampled(
+        ir_hf, block_size: int, spec, cfg: ChainConfig,
+        eq_params: EQParams | None, eps: float = 1e-10,
+        dtype=torch.float32, partition="auto",
+        fold_spectrum_curve: bool = True,
+        device="cuda") -> StereoConvolverState:
+    """Fold the whole oversampled linear chain into one base-rate IR, on
+    the host in f64, and prepare it with spectra in `dtype` on `device`.
+
+    The staged chain at os_factor L > 1 is, for a static linear config
+    (soft clip off, wet only, AGC off, diagonal EQ), the LTI cascade
+    up-FIRs -> dc_os (1 Hz) -> [EQ] -> conv (the IR at the processing
+    rate) -> output filter -> down-FIRs between the base-rate input and
+    output DC blockers.  Upsample by L -> LTI -> decimate by L is exactly
+    LTI at the base rate (the polyphase identity): with the composite
+    interpolator G_u and decimator G_d at the processing rate,
+
+        h_eq[n] = (G_d * h_hf_chain * G_u)[L n],
+
+    with no approximation beyond the eps pole-tail truncation of the
+    base-rate fold.  The run time is `process_chain_fused`.  The
+    oversampler's FIR group delay sits inside h_eq as its leading zeros,
+    as in the staged chain's output.
+
+    ir_hf: the IR at the processing rate (`ir.resample.resample_ir`).
+    The layer gains of the high-rate plan (block block_size x L) are
+    baked in; AIR damping cannot fold and raises.  The HC/LC curve folds
+    linearly (as in `prepare_folded_convolver`); fold_spectrum_curve=False
+    pairs with a staged NUC prepared apply_spectrum_filter=False for an
+    exact comparison.  partition: "auto" (`throughput_partition_size`),
+    an int partition size for one uniform layer, or None for the
+    reference's 3-layer plan with unit gains.  At L == 1 this is
+    `prepare_folded_convolver`."""
+    from ..ops.scan_iir import _biquad_pole_radius
+    from .eq import (STEREO, _band_matrix_response, _eq_ring_tail_samples,
+                     band_active_mask)
+    from .nuc import nuc_prepare_uniform, plan_layers, spectrum_filter_gain
+    from .output_filter import IDENTITY, output_filter_coeffs
+    if not (partition in ("auto", None) or isinstance(partition, int)):
+        raise ValueError(f"partition {partition!r}: 'auto', None or an int")
+    sr = cfg.sample_rate
+    L = resolve_oversampling_factor(cfg.oversampling_factor, sr)
+    if L == 1:
+        return prepare_folded_convolver(
+            ir_hf, block_size, spec, cfg, eq_params, eps, dtype, partition,
+            fold_spectrum_curve=fold_spectrum_curve, device=device)
+    if cfg.soft_clip_enabled:
+        raise ValueError("soft clip is nonlinear; the OS chain cannot fold")
+    if cfg.wet_dry_mix < 1.0:
+        raise ValueError("wet/dry mixing does not fold (the dry path "
+                         "bypasses the convolver)")
+    proc = sr * L
+    ir_hf = np.asarray(ir_hf, np.float64)
+    if ir_hf.ndim == 1:
+        ir_hf = np.stack([ir_hf, ir_hf])
+    base = plan_layers(ir_hf.shape[-1], block_size * L, spec)
+    if any(lp.damping is not None for lp in base.layers):
+        raise ValueError("AIR tail mode (per-layer damping) cannot be "
+                         "folded into the IR")
+    h_eff = ir_hf.copy()
+    for lp in base.layers:
+        if lp.gain != 1.0:
+            h_eff[:, lp.offset:lp.offset + lp.length] *= lp.gain
+
+    # the high-rate section: G_u * dc_os * [EQ] * h_eff * output filter *
+    # [HC/LC curve] * G_d, all on one processing-rate DFT grid
+    stages = make_stages(L, cfg.oversampling_preset)
+    g_up = _os_composite_taps(stages, True)
+    g_dn = _os_composite_taps(stages, False)
+    eq_active = (not cfg.eq_bypassed) and eq_params is not None
+    if eq_active:
+        if eq_params.agc_enabled or float(eq_params.saturation) > 0.0:
+            raise ValueError("AGC / saturated EQ is not LTI; cannot fold")
+        active = band_active_mask(eq_params)
+        if not all(int(eq_params.modes[b]) == STEREO
+                   for b in range(len(active)) if active[b]):
+            raise ValueError("M/S EQ bands mix channels; one IR per "
+                             "channel cannot fold them")
+    # truncation: the slowest pole among the 1 Hz oversampled DC
+    # blockers, the output-filter biquads and the EQ ring tail
+    radii = [1.0 - a for a in dc_blocker_alphas(proc, 1.0)]
+    ofc = output_filter_coeffs(proc)
+    conv_is_last = not eq_active or cfg.order == EQ_THEN_CONVOLVER
+    if conv_is_last:
+        stages_of = [ofc["hc"][cfg.conv_hc_mode][0],
+                     ofc["hc"][cfg.conv_hc_mode][1],
+                     ofc["lc"][cfg.conv_lc_mode]]
+    else:
+        stages_of = [ofc["hpf"], ofc["lp"][cfg.eq_lpf_mode][0],
+                     ofc["lp"][cfg.eq_lpf_mode][1]]
+    stages_of = [c for c in stages_of if tuple(c) != IDENTITY]
+    radii += [_biquad_pole_radius(c[3], c[4]) for c in stages_of]
+    eq_tail = _eq_ring_tail_samples(eq_params, proc, eps) if eq_active else 0
+    rmax = min(max(radii), 1.0 - 1e-12)
+    tail_hf = max(int(np.ceil(np.log(eps) / np.log(rmax))), eq_tail, 256)
+    total_hf = ir_hf.shape[-1] + len(g_up) + len(g_dn) + tail_hf
+    m = next_pow2(total_hf)
+    z = np.exp(1j * 2.0 * np.pi * np.arange(m // 2 + 1) / m)
+    H = np.fft.rfft(g_up, m) * np.fft.rfft(g_dn, m)
+    for a in dc_blocker_alphas(proc, 1.0):
+        H *= (1.0 - a) * (z - 1.0) / (z - (1.0 - a))
+    for b0, b1, b2, a1, a2 in stages_of:
+        H *= (b0 * z * z + b1 * z + b2) / (z * z + a1 * z + a2)
+    if eq_active:
+        freqs = np.arange(m // 2 + 1) * (proc / m)
+        H = H * _band_matrix_response(eq_params, proc, freqs)[0]
+    if spec is not None and fold_spectrum_curve:
+        H = H * spectrum_filter_gain(m, spec)
+    h_hf = np.fft.irfft(np.fft.rfft(h_eff, m) * H, m)[:, :total_hf]
+    h_dec = h_hf[:, ::L]                       # the polyphase identity
+
+    # the base-rate section: the input and output 3 Hz DC blockers
+    alphas_b = dc_blocker_alphas(sr, 3.0)
+    tail_b = max(int(np.ceil(np.log(eps) / np.log(min(
+        1.0 - a for a in alphas_b)))), 256)
+    nb = h_dec.shape[-1] + tail_b
+    mb = next_pow2(nb)
+    zb = np.exp(1j * 2.0 * np.pi * np.arange(mb // 2 + 1) / mb)
+    Hb = np.ones(mb // 2 + 1, complex)
+    for _ in range(2):
+        for a in alphas_b:
+            Hb *= (1.0 - a) * (zb - 1.0) / (zb - (1.0 - a))
+    combined = np.fft.irfft(np.fft.rfft(h_dec, mb) * Hb, mb)[:, :nb]
+    cj = torch.as_tensor(combined).to(dtype)
+    if partition is None:
+        return stereo_prepare(cj, block_size, spec,
+                              apply_spectrum_filter=False,
+                              unit_layer_gains=True, device=device)
+    if partition == "auto":
+        partition = throughput_partition_size(
+            combined.shape[-1], f64=(dtype == torch.float64))
+    return StereoConvolverState(
+        left=nuc_prepare_uniform(cj[0], int(partition), block_size, device),
+        right=nuc_prepare_uniform(cj[1], int(partition), block_size, device))
 
 class FoldedChain(nn.Module):
     """The prepared folded chain: static config plus the stereo convolver

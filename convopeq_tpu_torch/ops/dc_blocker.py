@@ -14,20 +14,24 @@ and the signal path of `dc_block`, :41-170): per state component one
 strictly-lower Toeplitz matmul on the input chunks, the chunk-boundary
 states through `affine_scan_2x2`, then the output combination.  The
 Toeplitz products are `torch.matmul` in the signal's type (TF32 off on
-the card).  Its TPU-only f64 emulation (`_dc_block_dd`) is not ported:
+the card), their operands built on the host and copied to the device
+once.  Its TPU-only f64 emulation (`_dc_block_dd`) is not ported:
 the card runs native f64 through this same path.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import numpy as np
 import torch
 
+from ..utils.dsputil import device_constants
 from .scan_iir import affine_scan_2x2
 
 INTERNAL_SPREAD = 0.1
 DC_CHUNK = 128
 
-_DC_KERNEL_CACHE: dict = {}
+_DC_CONSTANTS: OrderedDict = OrderedDict()
 
 
 def dc_blocker_alphas(sample_rate: float, cutoff_hz: float):
@@ -51,10 +55,6 @@ def _dc_kernels(a0: float, a1: float, chunk: int):
     row `chunk` of each Toeplitz carries the chunk-boundary drive.
     Returns (P = [A^0..A^chunk] (chunk+1, 2, 2), T0, T1 (chunk,
     chunk+1))."""
-    key = (a0, a1, chunk)
-    got = _DC_KERNEL_CACHE.get(key)
-    if got is not None:
-        return got
     b0, b1 = 1.0 - a0, 1.0 - a1
     A = np.array([[b0, 0.0], [-a1 * b0, b1]], np.float64)
     u = np.array([a0, a1 * b0], np.float64)
@@ -66,9 +66,7 @@ def _dc_kernels(a0: float, a1: float, chunk: int):
     idx = np.subtract.outer(np.arange(chunk + 1), np.arange(chunk)) - 1
     T = np.where(idx[..., None] >= 0,
                  w[np.clip(idx, 0, chunk - 1)], 0.0)   # (chunk+1, chunk, 2)
-    out = (P, T[..., 0].T.copy(), T[..., 1].T.copy())
-    _DC_KERNEL_CACHE[key] = out
-    return out
+    return P, T[..., 0].T.copy(), T[..., 1].T.copy()
 
 
 def dc_block(x, sample_rate: float, cutoff_hz: float, state0=None):
@@ -86,11 +84,12 @@ def dc_block(x, sample_rate: float, cutoff_hz: float, state0=None):
     npad = nc * chunk
     xp = torch.nn.functional.pad(x, (0, npad - n)) if npad != n else x
     xr = xp.reshape(batch + (nc, chunk))
-    P, T0, T1 = _dc_kernels(a0, a1, chunk)
-    d0 = xr @ torch.as_tensor(T0, dtype=dt, device=dev)
-    d1 = xr @ torch.as_tensor(T1, dtype=dt, device=dev)
+    Pt, T0, T1 = device_constants(_DC_CONSTANTS, (a0, a1, chunk),
+                                  lambda: _dc_kernels(a0, a1, chunk), dt,
+                                  dev)
+    d0 = xr @ T0
+    d1 = xr @ T1
     # chunk-boundary states: s_{b+1} = A^chunk s_b + drive_end[b]
-    Pt = torch.as_tensor(P, dtype=dt, device=dev)
     dend = torch.stack([d0[..., chunk], d1[..., chunk]], dim=-1)
     sb, s_after = affine_scan_2x2(Pt[chunk], dend, state0)  # (..., nc, 2)
     # y[i] = b1 (b0 (x - s0_pre) - s1_pre), s_pre = A^i s_b + drive[i]

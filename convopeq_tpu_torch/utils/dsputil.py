@@ -8,6 +8,7 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Output headroom applied before dither (= -1 dBFS).
 # Ref: src/audioengine/AudioEngine.Processing.DSPCoreDouble.cpp:581
@@ -35,6 +36,24 @@ def equal_power_sin(x):
     float64) — wet gain = equal_power_sin(mix), dry gain =
     equal_power_sin(1-mix)."""
     return equal_power_sin_poly(np.asarray(x, np.float64))
+
+
+def device_constants(cache, key, build, dtype, device, size: int = 64):
+    """The host arrays that build() returns, as a tuple of tensors of
+    `dtype` on `device`: built and copied once for each (key, dtype,
+    device), the `size` most recently used kept in `cache` (an
+    OrderedDict)."""
+    full = (key, dtype, device)
+    got = cache.get(full)
+    if got is not None:
+        cache.move_to_end(full)
+        return got
+    got = tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                for a in build())
+    cache[full] = got
+    if len(cache) > size:
+        cache.popitem(last=False)
+    return got
 
 
 def next_pow2(n: int) -> int:

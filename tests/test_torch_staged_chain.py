@@ -133,20 +133,23 @@ def test_process_chain_both_bypassed_matches_jax_f64(fixture):
 
 
 def test_staged_chain_module_and_oversampling(fixture):
-    """StagedChain runs process_chain with its buffers; os_factor > 1
-    raises (oversampling is not ported) instead of running another
-    chain."""
+    """StagedChain runs process_chain with its buffers, at 1x and, now
+    that oversampling is ported, at os_factor 2 (the 48 kHz NUC here
+    stands in for an IR at the processing rate): the same output as
+    process_chain, shaped as the input and finite
+    (tests/test_torch_oversampled_chain.py holds the oversampled chain
+    against the JAX package)."""
     x, p, _ir, _jstate, tstate = fixture
     cfg = t_chain.ChainConfig(sample_rate=SR, soft_clip_enabled=True)
-    chain = t_chain.StagedChain(cfg, _port_params(p), tstate)
     xt = torch.from_numpy(x)
-    np.testing.assert_array_equal(
-        chain(xt).numpy(),
-        t_chain.process_chain(xt, cfg, _port_params(p), tstate).numpy())
+    for c in (cfg, replace(cfg, oversampling_factor=2)):
+        chain = t_chain.StagedChain(c, _port_params(p), tstate)
+        y = chain(xt)
+        np.testing.assert_array_equal(
+            y.numpy(),
+            t_chain.process_chain(xt, c, _port_params(p), tstate).numpy())
+        assert y.shape == xt.shape and bool(torch.isfinite(y).all())
     assert any(n.startswith("convolver.") for n, _ in chain.named_buffers())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_chain.process_chain(xt, replace(cfg, oversampling_factor=2),
-                              _port_params(p), tstate)
 
 
 def test_process_chain_f32_error_within_jax(fixture):
