@@ -124,13 +124,36 @@
    soft clip at 4x (4 x 2 s, saturation
    0.3, f32 against the f64 plain path at the line's f32 limit), and
    both lines' realtime factor.
-14. A JSON line of the kernels (launches: the f32 frame kernels' and the
+14. The serving runtime (`serve.py`, `runtime/streaming.py`) on
+   tools/serving_bench.py's fixture (the 1M-tap IR and eq20 at 48 kHz,
+   block 512): (a) each folded tier (the reference's 3-layer plan and the
+   bigblock M16 plan, f32 FDL and f16 FDL, and f64) at 1 stream x 10 s
+   against the f64 offline folded chain on the plain path on the card,
+   past max(offset + 2p): f32 <= 2e-5, f16 <= 1e-3, f64 <= 1e-12, each
+   with its forward (f32 `osa_rfft`, f64 `frames_rfft`) and inverse
+   launched and no frame kernel of the other type; (b) the staged step
+   (eq20, the unfolded 3-layer NUC) against the offline `process_chain`
+   in f64 on the plain path at 5 s: 1x f32 <= 2e-3 and f64 <= 1e-9, 4x
+   with the soft clip in f64 <= 1e-7;
+   (c) the per-block serving points (`serve.measure_point`, 400 blocks,
+   25 windows at least): median / p90 / p99 / max wall, xruns, streams x
+   realtime, host time a block, device operations a block and busy share
+   over one profiled window, peak memory, state bytes a stream, one JSON
+   line each; (d) the forward and inverse frame kernels of each type at
+   the serving shapes (C = 512, p = 512, 4096, 32768, 8192) against
+   their plain versions, beside cuFFT's time for the same transform and
+   their bound.
+15. A JSON line of the kernels (launches: the f32 frame kernels' and the
    fused kernel's from the prefilter chain's run of phase 8a, the
    quantizer's from config6's of phase 6a, the f64 kernels' from the f64
-   headline's of phase 11a, osa_rfft's from the self-check path of 3c;
-   every path's counts beside them, the staged lines' and config3's
-   included; the MACs' rows also carry their time at config3's shape),
-   the card's name and power limit, then the result line.
+   headline's of phase 11a, osa_rfft's from the folded serving run of
+   14a; every path's counts beside them (the self-check path's of 3c
+   included), the staged lines', config3's and the
+   serving paths' included (serve_folded, serve_folded_f64:
+   14a's 3-layer f32 and f64 runs; serve_staged: 14b's 1x f32 run); the
+   MACs' rows also carry their time at config3's shape, the transforms'
+   their times at the serving shapes), the card's name and power limit,
+   then the result line.
 Any failure raises, and the script exits non-zero.
 """
 import dataclasses
@@ -145,7 +168,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from convopeq_tpu_torch import config3, config6, headline, nuc3, parity, staged
+from convopeq_tpu_torch import (config3, config6, headline, nuc3, parity,
+                                serve, staged)
 from convopeq_tpu_torch.device import card_description
 from convopeq_tpu_torch.models import dither
 from convopeq_tpu_torch.models import eq as eq_model
@@ -1370,6 +1394,208 @@ def phase_config3_staged(card):
         staged_rtf(ln, card)
     return by_path
 
+FOLDED_TIERS = ("folded", "folded_f16", "bigblock_M16", "bigblock_M16_f16",
+                "folded_f64", "bigblock_M16_f64")
+# 14c: (tier, stream counts), 400 blocks a point
+SERVING_POINTS = (("folded", (1, 32, 256, 1024)),
+                  ("folded_f16", (256, 1024)),
+                  ("bigblock_M16", (256, 1024)),
+                  ("bigblock_M16_f16", (256, 1024)),
+                  ("folded_f64", (1, 256, 1024)),
+                  ("staged", (1, 32)))
+SERVING_BLOCKS = 400
+SERVING_PARTS = (512, 4096, 32768, 8192)   # 14d: the layers' partitions
+SERVING_C = 512
+
+
+def serving_launch_check(name, launches, dtype):
+    """A serving run of `dtype` launched its forward and inverse frame
+    kernels and no kernel of the other type (nor the fused kernel)."""
+    if dtype == torch.float64:
+        own = ("frames_rfft_f64", "irfft_valid_f64")
+        other = (*fk.F32_KERNELS, "osa_rfft", "fused_conv")
+    else:
+        own = ("osa_rfft", "irfft_valid")
+        other = (*fk.F64_KERNELS, "fused_conv")
+    check(all(launches[n] > 0 for n in own)
+          and all(launches[n] == 0 for n in other),
+          f"{name}: launched {own}, none of {other} ({launches})")
+
+
+def phase_serving_fidelity(card, fixture, cache):
+    """14a: each folded tier against the f64 offline folded chain on the
+    plain path; returns the f32 and f64 3-layer tiers' counts."""
+    counts = {}
+    t0 = time.perf_counter()
+    reset_launches()
+    for row in serve.fidelity(FOLDED_TIERS, 10.0, "cuda", fixture, cache):
+        launches = {**launches_now(), **row["launches"]}
+        _, dtype, fdl, _ = serve.TIERS[row["tier"]]
+        print(f"serve {row['tier']} 1x{row['seconds']:g}s streamed vs the "
+              f"f64 offline folded chain (plain path), past "
+              f"{row['skip_s']:.3f} s: rel RMS {row['rel_rms']:.3e} (tol "
+              f"{row['limit']:g}), finite {row['finite']}, layers "
+              f"{row['layers']}, launches "
+              f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+        check(row["finite"] and row["rel_rms"] <= row["limit"],
+              f"serve {row['tier']} matches the f64 offline folded chain")
+        serving_launch_check(f"serve {row['tier']}", launches, dtype)
+        counts[row["tier"]] = launches
+    print(f"14a: {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts["folded"], counts["folded_f64"]
+
+
+def phase_serving_staged(card, fixture):
+    """14b: the staged step against the offline process_chain in f64 on
+    the plain path: 1x f32 (2e-3) and f64 (1e-9), 4x with the soft clip
+    in f64 (1e-7), 1 stream x 5 s each (L2 of the 1M-tap NUC, at 5.58 s,
+    is heard in 14a's folded runs).  Returns the 1x f32 run's counts."""
+    t0 = time.perf_counter()
+    counts = None
+    for dtype, os_factor, seconds, clip, limit in (
+            (torch.float32, 1, 5.0, False, 2e-3),
+            (torch.float64, 1, 5.0, False, 1e-9),
+            (torch.float64, 4, 5.0, True, 1e-7)):
+        reset_launches()
+        row, fk_counts = serve.staged_fidelity(dtype, os_factor, seconds,
+                                               "cuda", fixture, clip)
+        launches = {**launches_now(), **fk_counts}
+        print(f"serve staged step {row['dtype']} at {os_factor}x (soft clip "
+              f"{clip}) 1x{row['seconds']:g}s vs offline process_chain f64 "
+              f"plain: rel RMS {row['rel_rms']:.3e} (tol {limit:g}), finite "
+              f"{row['finite']}, layers {row['layers']}, launches "
+              f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+        check(row["finite"] and row["rel_rms"] <= limit,
+              f"the staged step at {os_factor}x {row['dtype']} matches the "
+              "offline chain")
+        serving_launch_check(f"staged step {row['dtype']} {os_factor}x",
+                             launches, dtype)
+        if counts is None:
+            counts = launches
+        torch.cuda.empty_cache()
+    print(f"14b: {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts
+
+
+def phase_serving_points(card, fixture, cache):
+    """14c: the per-block serving points (`serve.measure_point`, profiled
+    over one window)."""
+    t0 = time.perf_counter()
+    rows = []
+    for tier, streams in SERVING_POINTS:
+        chain = cache.pop(tier, None) or serve.build_chain(
+            tier, "cuda", fixture)
+        for ns in streams:
+            row = serve.measure_point(chain, ns, SERVING_BLOCKS, profile=True,
+                                      tier=tier)
+            print(json.dumps({"serving_point": row, "card": card}))
+            check(row["finite"], f"serve {tier} x{ns} output finite")
+            rows.append(row)
+        del chain
+        torch.cuda.empty_cache()
+    print(f"14c: {time.perf_counter() - t0:.1f} s [{card}]")
+    return rows
+
+
+def phase_serving_kernels(card):
+    """14d: the forward and inverse frame kernels at the serving shapes
+    (C = 512 frames, K = 1; the f64 forward on the stacked pair, K = 2, as
+    the f64 step runs it, beside the bound and cuFFT's time of the one
+    frame it keeps) against their plain versions, each beside cuFFT's
+    time for the same transform (torch.fft, CUDA events, median of 7) and
+    its bound."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        f64 = dtype == torch.float64
+        rate = F64_OPS_S if f64 else F32_OPS_S
+        item = 8 if f64 else 4
+        for p in SERVING_PARTS:
+            k_fwd = 2 if f64 else 1
+            x = torch.randn((SERVING_C, k_fwd, p), generator=gen,
+                            device=dev, dtype=dtype)
+            osa = torch.randn((SERVING_C, 1, 2 * p), generator=gen,
+                              device=dev, dtype=dtype)
+            if f64:
+                # the stacked (prev, cur) pair: frames [0 | prev] and
+                # [prev | cur]; cuFFT takes them built
+                fwd_name = "frames_rfft_f64"
+                fwd = lambda: fk.frames_rfft(x)
+                ref_fwd = fk.frames_rfft_plain(x)
+                osa = torch.cat([torch.cat([torch.zeros_like(x[:, :1]),
+                                            x[:, :1]], dim=1), x], dim=-1)
+                frames_n, in_vals = SERVING_C * k_fwd, p
+            else:
+                fwd_name = "osa_rfft"
+                fwd = lambda: fk.osa_rfft(osa)
+                ref_fwd = fk.osa_rfft_plain(osa)
+                frames_n, in_vals = SERVING_C, 2 * p
+            lib_fwd = lambda: torch.fft.rfft(osa, dim=-1)
+            Y = ref_fwd[:, -1:].contiguous()
+            inv_name = "irfft_valid_f64" if f64 else "irfft_valid"
+            inv = lambda: fk.irfft_valid(Y)
+            ref_inv = fk.irfft_valid_plain(Y)
+            lib_inv = lambda: torch.fft.irfft(Y, n=2 * p, dim=-1)
+            spec_b = (p + 1) * 2 * item
+            for name, kern, ref, lib, nbytes, n_fr in (
+                    (fwd_name, fwd, ref_fwd, lib_fwd,
+                     frames_n * (in_vals * item + spec_b), frames_n),
+                    (inv_name, inv, ref_inv, lib_inv,
+                     SERVING_C * (spec_b + p * item), SERVING_C)):
+                got = kern()
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                scale = max(1.0, float(ref.abs().max()))
+                tol = (1e-12 if f64 else 2e-5) * scale
+                check(err <= tol and bool(torch.isfinite(got).all()),
+                      f"{name} at the serving shape p={p} disagrees")
+                b_ms, b_by = bound(nbytes, n_fr * rfft_ops(p), rate)
+                row = {"p": p, "C": SERVING_C, "K": n_fr // SERVING_C,
+                       "max_abs_err": err, "ms": time_ms(kern),
+                       "library_ms": time_ms(lib), "bound_ms": b_ms,
+                       "bound_by": b_by}
+                one = ""
+                if name == "frames_rfft_f64":
+                    # the step keeps only the pair's second frame: the
+                    # bound and cuFFT's time of that one frame a channel
+                    osa1 = osa[:, 1:].contiguous()
+                    row["bound_ms_one_frame"], row["bound_by_one_frame"] = \
+                        bound(SERVING_C * (2 * p * item + spec_b),
+                              SERVING_C * rfft_ops(p), rate)
+                    row["library_ms_one_frame"] = time_ms(
+                        lambda: torch.fft.rfft(osa1, dim=-1))
+                    one = (f"; the one frame the step keeps: cuFFT "
+                           f"{row['library_ms_one_frame']:.4f} ms, bound "
+                           f"{row['bound_ms_one_frame']:.4f} ms "
+                           f"({row['bound_by_one_frame']})")
+                print(f"{name} at the serving shape (C={SERVING_C} "
+                      f"K={row['K']} p={p}): max|diff| {err:.3e} (tol "
+                      f"{tol:.3e}); kernel {row['ms']:.4f} ms, cuFFT "
+                      f"{row['library_ms']:.4f} ms, bound "
+                      f"{b_ms:.4f} ms ({b_by}){one} [{card}]")
+                out.setdefault(name, []).append(row)
+            del x, osa, Y
+    return out
+
+
+def phase_serving(card):
+    """Phase 14: the serving runtime (`serve.py`, `runtime/streaming.py`);
+    returns (counts by serving path, 14d's rows by kernel)."""
+    t0 = time.perf_counter()
+    fixture = serve.serving_fixture()
+    cache = {}
+    by_path = {}
+    by_path["serve_folded"], by_path["serve_folded_f64"] = \
+        phase_serving_fidelity(card, fixture, cache)
+    by_path["serve_staged"] = phase_serving_staged(card, fixture)
+    phase_serving_points(card, fixture, cache)
+    cache.clear()
+    torch.cuda.empty_cache()
+    shapes = phase_serving_kernels(card)
+    print(f"phase 14 (serving): {time.perf_counter() - t0:.1f} s [{card}]")
+    return by_path, shapes
+
 
 def main():
     card = phase_environment()
@@ -1392,16 +1618,20 @@ def main():
     config3_launches, mac_rows = phase_config3(card)
     by_path.update(config3_launches)
     by_path.update(phase_config3_staged(card))
+    serving, serving_shapes = phase_serving(card)
+    by_path.update(serving)
     by_path["self_check"] = self_check
     f64 = by_path["headline_f64"]
     launches = {**by_path["prefilter"], "error_feedback_quantize":
                 config6_launches["error_feedback_quantize"],
                 **{n: f64[n] for n in fk.F64_KERNELS},
-                "osa_rfft": self_check["osa_rfft"]}
+                "osa_rfft": by_path["serve_folded"]["osa_rfft"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name], **rows[name],
          **({"config3": mac_rows[name]} if name in mac_rows else {}),
+         **({"serving_shapes": serving_shapes[name]}
+            if name in serving_shapes else {}),
          "launches_by_path": {k: v[name] for k, v in by_path.items()}}
         for name in SOURCES]}))
     print(card)

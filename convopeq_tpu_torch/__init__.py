@@ -10,7 +10,10 @@ semi-folded render chain with dither (`config6.py`), and the reference
 <=1e-9 tier (`parity.py`: the JAX package's f64 parity lines), and the
 staged chain at 1x (`models/chain.py` `process_chain`, `staged.py`: the
 EQ's band cascade and combined response, the AGC, the output filter's
-biquad scans and the analyzer's STFT as signal passes).  Their
+biquad scans and the analyzer's STFT as signal passes), and the serving
+runtime (`runtime/streaming.py` `StreamingChain`, the block-at-a-time
+step with its state, staged or folded, in f32, f16 delay line or f64;
+`runtime/crossfade.py`, `runtime/telemetry.py`; `serve.py`).  Their
 overlap-save partitioned convolutions run on an NVIDIA H100 through
 hand-written CUDA kernels: three frame kernels in f32 and in f64, and the
 forward of materialized frames (`ops/frame_conv_kernels.py`), and the f32

@@ -6,8 +6,9 @@ as numpy arrays and the plan (with each layer's damping) as plain
 numbers; a folded prefilter's spectra as a numpy array; a learned
 coefficient bank store as its dict of plain numbers
 (`AdaptiveCoefficientBanks.to_dict()`); EQ parameters and halfband
-stages as their numpy fields.  From the same prepared state both packages compute the same
-output.
+stages as their numpy fields; a streaming state as its fields' numpy
+arrays (`stream_state_from_arrays`).  From the same prepared state both
+packages compute the same output.
 
 Spectra come as complex arrays or, as the JAX package holds f64 spectra
 on an accelerator (its dd mode, convopeq_tpu/ops/partitioned_conv.py:
@@ -141,3 +142,71 @@ def halfband_stage_from_arrays(taps: int, center_tap: int,
                          conv_parity=int(conv_parity), conv=conv,
                          center_delay=int(center_delay),
                          center_gain=float(center_gain))
+
+
+def stream_state_from_arrays(chain, arrays: dict):
+    """The port's StreamState (runtime/streaming.py) for `chain` from a
+    streaming state of the JAX package, so that a stream the JAX package
+    advanced continues in the port.
+
+    arrays: the JAX StreamState's fields by name as numpy arrays: dc_in,
+    dc_out, eq_states, of_states, sc_up_hist, sc_down_hist, dc_os and agc
+    (each None where the JAX state holds None), os_up_hists and
+    os_down_hists (tuples), direct_hist (a (left, right) pair or None),
+    step (an int), and conv_layers as a (left, right) pair of layer
+    tuples, each layer a dict of prev, fdl, acc, ring, par and step with
+    the split planes joined into complex (fdl = fdl_r + 1j fdl_i, par =
+    par_r + 1j par_i).  The port keeps the two channels on axis -2 of one
+    tensor; the immediate layer's accumulator and output ring, which its
+    step never reads, are not kept."""
+    batch = tuple(np.shape(arrays["dc_in"])[:-2])
+    state = chain.init_state(batch)
+
+    def put(dst, src, name):
+        src = np.asarray(src)
+        if dst.dtype == torch.float16 and dst.shape[-1:] == (2,) \
+                and np.iscomplexobj(src):
+            src = np.stack([src.real, src.imag], axis=-1)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {src.shape}, the chain's state "
+                             f"holds {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(np.array(src)))
+
+    for name in ("dc_in", "dc_out", "eq_states", "of_states", "sc_up_hist",
+                 "sc_down_hist", "dc_os", "agc"):
+        dst, src = getattr(state, name), arrays.get(name)
+        if (dst is None) != (src is None):
+            raise ValueError(f"{name}: the chain's state and the arrays "
+                             "disagree on whether it is carried")
+        if dst is not None:
+            put(dst, src, name)
+    for name in ("os_up_hists", "os_down_hists"):
+        dsts, srcs = getattr(state, name), arrays[name]
+        if len(dsts) != len(srcs):
+            raise ValueError(f"{name}: {len(srcs)} stages, the chain has "
+                             f"{len(dsts)}")
+        for i, (dst, src) in enumerate(zip(dsts, srcs)):
+            put(dst, src, f"{name}[{i}]")
+    if (state.direct_hist is None) != (arrays.get("direct_hist") is None):
+        raise ValueError("direct_hist: the chain's state and the arrays "
+                         "disagree on whether it is carried")
+    if state.direct_hist is not None:
+        put(state.direct_hist, np.stack(arrays["direct_hist"], axis=-2),
+            "direct_hist")
+    left, right = arrays["conv_layers"]
+    if not len(left) == len(right) == len(state.conv_layers):
+        raise ValueError(f"conv_layers: {len(left)} / {len(right)} layers, "
+                         f"the chain has {len(state.conv_layers)}")
+    for i, (ls, lj, rj) in enumerate(zip(state.conv_layers, left, right)):
+        for name in ("prev", "fdl", "acc", "ring", "par"):
+            dst = getattr(ls, name)
+            if dst.shape[-1] == 0 and name in ("acc", "ring", "par"):
+                continue
+            put(dst, np.stack([lj[name], rj[name]], axis=-3
+                              if name == "fdl" else -2),
+                f"conv_layers[{i}].{name}")
+        if int(lj["step"]) != int(rj["step"]):
+            raise ValueError(f"conv_layers[{i}]: the channels' steps differ")
+        ls.step = int(lj["step"])
+    state.step = int(arrays["step"])
+    return state

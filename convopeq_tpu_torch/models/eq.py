@@ -31,6 +31,7 @@ constant-folds in the JAX package's compiled chain).
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -38,7 +39,7 @@ import torch
 
 from ..ops import svf as svf_ops
 from ..ops.svf import svf_coeffs, svf_process
-from ..utils.dsputil import next_pow2
+from ..utils.dsputil import device_constants, next_pow2
 
 NUM_BANDS = 20
 # Channel modes (EQProcessor.h: enum class EQChannelMode)
@@ -193,6 +194,7 @@ def _eq_ring_tail_samples(params: EQParams, sample_rate, eps=1e-10):
 
 
 _CACHE: dict = {}
+_AGC_ALPHAS: OrderedDict = OrderedDict()
 _CACHE_SIZE = 8
 
 
@@ -427,9 +429,11 @@ def agc_apply(x_pre, x_post, sample_rate, block_size, state0=None,
     in_rms = block_rms_max(x_pre).clamp(max=AGC_MAX_ENV)    # (..., nb)
     out_rms = block_rms_max(x_post).clamp(max=AGC_MAX_ENV)
     # blockAlpha = 1 - exp(-N / (sr T)) (EQProcessor.Core.cpp:776-778)
-    aA, aR = (torch.tensor(1.0 - np.exp(-block_size / (sample_rate * t)),
-                           dtype=dt, device=x_post.device)
-              for t in (AGC_ATTACK_TIME_SEC, AGC_RELEASE_TIME_SEC))
+    aA, aR = device_constants(
+        _AGC_ALPHAS, (block_size, float(sample_rate)),
+        lambda: tuple(1.0 - np.exp(-block_size / (sample_rate * t))
+                      for t in (AGC_ATTACK_TIME_SEC, AGC_RELEASE_TIME_SEC)),
+        dt, x_post.device)
     aS = 1.0 - np.exp(-block_size / (sample_rate * AGC_SMOOTH_TIME_SEC))
     batch = in_rms.shape[:-1]
     if state0 is None:

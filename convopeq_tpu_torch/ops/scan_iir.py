@@ -30,12 +30,21 @@ are its VPU affine-scan backend and CONVOPEQ_AFFINE_BACKEND.
 
 Time is the last axis of a signal (..., N), the second-to-last of `bu`
 (..., N, 2); leading axes are batch.  Matmuls run in the tensors' type
-(no TF32: `device.resolve_device` turns it off on the card).
+(no TF32: `device.resolve_device` turns it off on the card).  The
+constants made on the host (the in-chunk Toeplitz index and mask, a
+scalar biquad's companion matrix) are copied to the device once
+(`utils/dsputil.device_constants`): a copy from pageable host memory
+waits for the card's queue to drain, and the streaming step
+(runtime/streaming.py) runs these scans every block.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import numpy as np
 import torch
+
+from ..utils.dsputil import device_constants
 
 MATMUL_CHUNK = 128
 DEFAULT_CHUNK = 4096
@@ -48,6 +57,12 @@ POLE_RADIUS_DIAG_F32 = 0.99
 # BIQUAD_FIR_TAPS taps: the truncation error r^taps < 1e-9 at 0.85.
 POLE_RADIUS_FIR_F32 = 0.85
 BIQUAD_FIR_TAPS = 128
+
+_SCAN_CONSTANTS: OrderedDict = OrderedDict()
+# affine_scan_2x2's operands by key (each T is (2 chunk)^2 values: 0.5 MB
+# in f64 at chunk 128)
+_SCAN_OPERANDS: OrderedDict = OrderedDict()
+SCAN_OPERANDS_KEPT = 128
 
 
 def _biquad_pole_radius(a1: float, a2: float) -> float:
@@ -74,6 +89,12 @@ def associative_scan(combine, elems):
                        tuple(e[..., 2::2] for e in elems))
     else:
         even = combine(odd, tuple(e[..., 2::2] for e in elems))
+    return _interleave(elems, even, odd, n)
+
+
+def _interleave(elems, even, odd, n: int):
+    """The scan's outputs at even positions (the first element, then
+    `even`) and odd positions (`odd`), n along the last axis."""
     out = []
     for e, ev, od in zip(elems, even, odd):
         ev = torch.cat([e[..., :1].expand(ev.shape[:-1] + (1,)), ev], dim=-1)
@@ -92,6 +113,53 @@ def _affine_combine(left, right):
     return (r11 * l11 + r12 * l21, r11 * l12 + r12 * l22,
             r21 * l11 + r22 * l21, r21 * l12 + r22 * l22,
             r11 * lv1 + r12 * lv2 + rv1, r21 * lv1 + r22 * lv2 + rv2)
+
+
+def _matrix_combine(left, right):
+    """The matrix half of `_affine_combine`: right o left of the maps'
+    matrices (m11, m12, m21, m22)."""
+    l11, l12, l21, l22 = left
+    r11, r12, r21, r22 = right
+    return (r11 * l11 + r12 * l21, r11 * l12 + r12 * l22,
+            r21 * l11 + r22 * l21, r21 * l12 + r22 * l22)
+
+
+def _vector_combine(rm, left, right):
+    """The vector half of `_affine_combine`: (v1, v2) of right o left,
+    given the right maps' matrices rm."""
+    r11, r12, r21, r22 = rm
+    lv1, lv2 = left
+    rv1, rv2 = right
+    return (r11 * lv1 + r12 * lv2 + rv1, r21 * lv1 + r22 * lv2 + rv2)
+
+
+def _matrix_tree(me):
+    """The maps' matrices at each level of `associative_scan`'s tree:
+    level 0 `me`, level k+1 the pairs of level k combined."""
+    levels = [me]
+    while levels[-1][0].shape[-1] >= 2:
+        m = levels[-1]
+        levels.append(_matrix_combine(tuple(e[..., 0:-1:2] for e in m),
+                                      tuple(e[..., 1::2] for e in m)))
+    return levels
+
+
+def _affine_vector_scan(levels, v, depth: int = 0):
+    """The vector half of associative_scan(_affine_combine, m + v), the
+    matrices' tree `levels` (`_matrix_tree` of m) made beforehand: the
+    same operations on v in the same order, so the same roundings."""
+    n = v[0].shape[-1]
+    if n < 2:
+        return v
+    m = levels[depth]
+    reduced = _vector_combine(tuple(e[..., 1::2] for e in m),
+                              tuple(e[..., 0:-1:2] for e in v),
+                              tuple(e[..., 1::2] for e in v))
+    odd = _affine_vector_scan(levels, reduced, depth + 1)
+    left = tuple(e[..., :-1] for e in odd) if n % 2 == 0 else odd
+    even = _vector_combine(tuple(e[..., 2::2] for e in m), left,
+                           tuple(e[..., 2::2] for e in v))
+    return _interleave(v, even, odd, n)
 
 
 def _one_pole_combine(left, right):
@@ -113,12 +181,48 @@ def _matrix_powers(A, k: int):
     return Ps[..., :k + 1, :, :]
 
 
-def affine_scan_2x2(A, bu, s0, chunk: int = MATMUL_CHUNK):
+def _scan_operands(A, chunk: int, nc: int):
+    """The operands of `affine_scan_2x2` that depend only on A, the chunk
+    and the chunk count: the powers Ps (a.., chunk+1, 2, 2), the
+    block-Toeplitz T (a.., 2 chunk, 2 chunk) and, for nc > 1, the chunk
+    maps' matrix tree and their prefix matrices (c11, c12, c21, c22)."""
+    dt, dev = A.dtype, A.device
+    Ps = _matrix_powers(A, chunk)                   # (a.., chunk+1, 2, 2)
+    # win[i, a] = sum_{j<i, b} (A^(i-1-j))_ab bu[j, b]: one product of the
+    # chunk's (j, b)-interleaved drive with the block-Toeplitz
+    # T[(j, b), (i, a)] = (A^(i-1-j))_ab (j < i, else 0).  One GEMM and
+    # no stack; on the f64 18-20 Hz output-filter biquads its rounding
+    # moves the output ~4e-13 under a 1-ulp input change, where four
+    # (chunk x chunk) products summed moved it ~1e-12
+    idx = lambda: np.subtract.outer(np.arange(chunk), np.arange(chunk)) - 1
+    idxc, = device_constants(_SCAN_CONSTANTS, ("toeplitz_index", chunk),
+                             lambda: (np.clip(idx(), 0, chunk),), torch.long,
+                             dev)
+    mask, = device_constants(_SCAN_CONSTANTS, ("toeplitz_mask", chunk),
+                             lambda: (idx() >= 0,), dt, dev)
+    T = Ps[..., idxc, :, :] * mask[:, :, None, None]   # (a.., i, j, a, b)
+    T = T.permute(*range(T.dim() - 4), -3, -1, -4, -2).reshape(
+        T.shape[:-4] + (2 * chunk, 2 * chunk))
+    if nc == 1:
+        return Ps, T, None, None
+    # the chunk maps (A^chunk, v_c): their matrices depend on the batch
+    # only through A (a.., nc), broadcast against the batch
+    m_tot = Ps[..., chunk, :, :]
+    me = tuple(m_tot[..., a, b].unsqueeze(-1).expand(A.shape[:-2] + (nc,))
+               for a in (0, 1) for b in (0, 1))
+    return Ps, T, _matrix_tree(me), associative_scan(_matrix_combine, me)
+
+
+def affine_scan_2x2(A, bu, s0, chunk: int = MATMUL_CHUNK, key=None):
     """Evaluate s[n+1] = A @ s[n] + bu[n] for constant A.
 
     A: (2, 2) or (..., 2, 2) broadcast against the batch; bu: (..., N, 2);
     s0: (..., 2).  Returns (pre_states (..., N, 2) = s[0..N-1],
-    final_state (..., 2) = s[N])."""
+    final_state (..., 2) = s[N]).  key: hashable, naming A's value (the
+    host coefficients it was made from): the operands that depend only on
+    A (`_scan_operands`) are then made once a (key, chunk, length, dtype,
+    device) and kept, bit for bit the ones made every call (the streaming
+    step runs ~25 such scans a block)."""
     dt, dev = bu.dtype, bu.device
     batch = bu.shape[:-2]
     n = bu.shape[-2]
@@ -127,28 +231,24 @@ def affine_scan_2x2(A, bu, s0, chunk: int = MATMUL_CHUNK):
     chunk = min(chunk, n)
     nc = -(-n // chunk)
     npad = nc * chunk
+    if key is None:
+        Ps, T, levels, prefix = _scan_operands(A, chunk, nc)
+    else:
+        full = (key, chunk, nc, dt, dev)
+        got = _SCAN_OPERANDS.get(full)
+        if got is None:
+            got = _SCAN_OPERANDS[full] = _scan_operands(A, chunk, nc)
+            if len(_SCAN_OPERANDS) > SCAN_OPERANDS_KEPT:
+                _SCAN_OPERANDS.popitem(last=False)
+        else:
+            _SCAN_OPERANDS.move_to_end(full)
+        Ps, T, levels, prefix = got
     bu_last = bu[..., n - 1, :]
     if npad != n:
         bu = torch.nn.functional.pad(bu, (0, 0, 0, npad - n))
     bu_r = bu.reshape(batch + (nc, chunk, 2))
-    # A is either shared (2, 2) or per batch element (batch, 2, 2), and
-    # the powers and Toeplitz factors carry A's leading shape
-    Ps = _matrix_powers(A, chunk)                   # (a.., chunk+1, 2, 2)
-    # win[i, a] = sum_{j<i, b} (A^(i-1-j))_ab bu[j, b]: one product of the
-    # chunk's (j, b)-interleaved drive with the block-Toeplitz
-    # T[(j, b), (i, a)] = (A^(i-1-j))_ab (j < i, else 0).  One GEMM and
-    # no stack; on the f64 18-20 Hz output-filter biquads its rounding
-    # moves the output ~4e-13 under a 1-ulp input change, where four
-    # (chunk x chunk) products summed moved it ~1e-12
-    idx = np.subtract.outer(np.arange(chunk), np.arange(chunk)) - 1
-    idxc = torch.as_tensor(np.clip(idx, 0, chunk), device=dev)
-    mask = torch.as_tensor(idx >= 0, dtype=dt, device=dev)
-    T = Ps[..., idxc, :, :] * mask[:, :, None, None]   # (a.., i, j, a, b)
-    T = T.permute(*range(T.dim() - 4), -3, -1, -4, -2).reshape(
-        T.shape[:-4] + (2 * chunk, 2 * chunk))
     win = (bu_r.reshape(batch + (nc, 2 * chunk)) @ T).reshape(
         batch + (nc, chunk, 2))
-    shared = A.dim() == 2
     # the 2x2 products as einsums (one GEMM or one batched GEMM): a
     # broadcast `@` over the (..., nc, chunk) batch would run as a loop
     # of batched matrix-vector calls
@@ -156,13 +256,9 @@ def affine_scan_2x2(A, bu, s0, chunk: int = MATMUL_CHUNK):
         # chunk totals: s_{c+1} = A^chunk s_c + (A win[c, -1] + bu[c, -1])
         v_tot = torch.einsum("...ab,...cb->...ca", A,
                              win[..., -1, :]) + bu_r[..., -1, :]
-        # the chunk maps' matrices depend on the batch only through A
-        m_tot = Ps[..., chunk, :, :]
-        me = tuple(m_tot[..., a, b].expand((nc,)) if shared
-                   else m_tot[..., a, b].unsqueeze(-1).expand(batch + (nc,))
-                   for a in (0, 1) for b in (0, 1))
-        c11, c12, c21, c22, cv1, cv2 = associative_scan(
-            _affine_combine, me + (v_tot[..., 0], v_tot[..., 1]))
+        c11, c12, c21, c22 = prefix
+        cv1, cv2 = _affine_vector_scan(levels, (v_tot[..., 0],
+                                                v_tot[..., 1]))
         post_c1 = c11 * s0[..., :1] + c12 * s0[..., 1:] + cv1
         post_c2 = c21 * s0[..., :1] + c22 * s0[..., 1:] + cv2
         start = torch.stack(
@@ -328,8 +424,11 @@ def _biquad_scan_2x2(x, b0, b1, b2, a1, a2, s0):
     dt, dev = x.dtype, x.device
     batch = x.shape[:-1]
     if _all_scalar((b0, b1, b2, a1, a2)):
-        A = torch.tensor([[-a1, 1.0], [-a2, 0.0]], dtype=dt, device=dev)
+        A, = device_constants(
+            _SCAN_CONSTANTS, ("companion", float(a1), float(a2)),
+            lambda: (np.array([[-a1, 1.0], [-a2, 0.0]]),), dt, dev)
         c1, c2 = b1 - a1 * b0, b2 - a2 * b0
+        key = ("companion", float(a1), float(a2))
     else:
         b0, b1, b2, a1, a2 = (torch.as_tensor(c, dtype=dt, device=dev)
                               .expand(batch) for c in (b0, b1, b2, a1, a2))
@@ -339,11 +438,12 @@ def _biquad_scan_2x2(x, b0, b1, b2, a1, a2, s0):
         c1 = (b1 - a1 * b0).unsqueeze(-1)
         c2 = (b2 - a2 * b0).unsqueeze(-1)
         b0 = b0.unsqueeze(-1)
+        key = None
     bu = torch.stack([x * c1, x * c2], dim=-1)
     if s0 is None:
         s0 = torch.zeros(batch + (2,), dtype=dt, device=dev)
     pre, final = affine_scan_2x2(A, bu, torch.as_tensor(s0, dtype=dt,
-                                                        device=dev))
+                                                        device=dev), key=key)
     return b0 * x + pre[..., 0], final
 
 

@@ -13,11 +13,16 @@ elementwise.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import numpy as np
 import torch
 
+from ..utils.dsputil import device_constants
 from .fast_tanh import fast_tanh_eq, fast_tanh_eq_v
 from .scan_iir import _all_scalar, affine_scan_2x2
+
+_TRANSITIONS: OrderedDict = OrderedDict()
 
 # Band types (ref: src/eqprocessor/EQProcessor.h:43-62)
 LOW_SHELF = 0
@@ -141,17 +146,23 @@ def svf_process(x, coeffs, state0=None, saturation=0.0, simd_tanh=True):
     batch = x.shape[:-1]
     if _all_scalar(coeffs):
         a1, a2, a3, m0, m1, m2 = (float(c) for c in coeffs)
-        A = svf_transition(*(torch.tensor(c, dtype=dt, device=dev)
-                             for c in (a1, a2, a3)))
+        # made on the host in dt (the same roundings as on the card) and
+        # copied to the device once: see ops/scan_iir.py
+        A, = device_constants(
+            _TRANSITIONS, (a1, a2, a3),
+            lambda: (svf_transition(*(torch.tensor(c, dtype=dt)
+                                      for c in (a1, a2, a3))),), dt, dev)
+        key = ("svf", a1, a2, a3)
     else:
         a1, a2, a3, m0, m1, m2 = (
             torch.as_tensor(c, dtype=dt, device=dev).expand(batch)
             .unsqueeze(-1) for c in coeffs)
         A = svf_transition(a1[..., 0], a2[..., 0], a3[..., 0])
+        key = None
     bu = torch.stack([2.0 * a2 * x, 2.0 * a3 * x], dim=-1)
     if state0 is None:
         state0 = torch.zeros(batch + (2,), dtype=dt, device=dev)
-    pre, final = affine_scan_2x2(A, bu, state0)
+    pre, final = affine_scan_2x2(A, bu, state0, key=key)
     ic1 = pre[..., 0]
     ic2 = pre[..., 1]
     v3 = x - ic2

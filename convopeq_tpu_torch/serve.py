@@ -1,0 +1,405 @@
+"""The serving runtime on the card: the per-block wall of
+`runtime/streaming.StreamingChain.step` against the callback budget
+(counterpart of tools/serving_bench.py's per-block, frontier, fidelity
+and state-budget modes).
+
+    python -m convopeq_tpu_torch.serve [--tiers T ...] [--streams N ...]
+        [--blocks 400] [--ir-taps 1000000] [--profile] [--device cuda]
+    python -m convopeq_tpu_torch.serve --frontier [--windows 2 4 8 16]
+        [--fdl-dtype float16] [--streams N ...]
+    python -m convopeq_tpu_torch.serve --fidelity [--seconds 10]
+    python -m convopeq_tpu_torch.serve --state-budget
+
+prints one JSON line a measured point (and, on the card, the card's name
+and power limit first); it writes no file.  The JAX package's record,
+SERVING.json, is its own and stays untouched.
+
+The fixture is the bench's (tools/serving_bench.py:110-116): a 1M-tap
+mono IR from np.random.default_rng(0) (decay exp(-n / (taps / 10)),
+x0.02), the 20-band EQ at gains linspace(-4, 4, 20), ChainConfig at
+48 kHz, block 512 (a 10.67 ms budget).  The tiers (`TIERS`):
+
+- folded: the EQ, DC blockers, output filter and HC/LC curve folded into
+  the IR (1,065,149 taps) on the reference's 3-layer plan: 512 x 12,
+  4096 x 64 at offset 5,760, 32768 x 25 at offset 267,904;
+- _f16: the FDL stored in f16, the MAC in f32;
+- bigblock_M16: the folded IR as one layer at 16 x 512 = 8192: one step
+  a 170.67 ms window;
+- _f64: the chain in f64 (complex128 spectra and FDL);
+- staged: the staged step (the EQ's 20 band scans, the DC blockers, the
+  output filter) around the unfolded 3-layer NUC with its spectrum
+  filter.
+
+A point stages its inputs on the device before the timed loop, steps
+through one period of its slowest layer from a fresh state (the kernels
+build, every layer fires once), then times `blocks` 512-sample blocks
+(25 windows at least) from a fresh state: a block's wall
+runs from the step's call to torch.cuda.synchronize() after it, and the
+host time from the call to its return.  Xruns are counted by
+`runtime/telemetry.XrunDetector` (1.5 x the window's period).  Each point
+records median / p90 / p95 / p99 / max wall, xruns, streams x realtime
+over the whole timed window (streams x steps x budget / the walls' sum,
+fire blocks included; beside it the median block's, streams x budget /
+median wall, which leaves the fire blocks out), the host time a block,
+the frame
+kernels' launches a step, peak device memory, the state's bytes a stream
+(measured, and `StreamingChain.state_bytes`), and with --profile the
+device operations a step and the busy share over one profiled window
+(torch.profiler).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .device import card_description, resolve_device
+from .models.chain import (ChainConfig, prepare_folded_convolver,
+                           process_chain, process_chain_fused)
+from .models.convolver import StereoConvolverState
+from .models.eq import EQParams
+from .models.nuc import FilterSpec, nuc_prepare, plan_layers
+from .ops import frame_conv_kernels as fk
+from .parity import rel_rms
+from .runtime.streaming import StreamingChain
+from .runtime.telemetry import XrunDetector
+
+SAMPLE_RATE = 48000.0
+BLOCK = 512
+IR_TAPS = 1_000_000
+BUDGET_MS = BLOCK / SAMPLE_RATE * 1e3
+F32, F64, F16 = torch.float32, torch.float64, torch.float16
+# tier: (kind, dtype, FDL dtype, bigblock window in blocks or None)
+TIERS = {
+    "folded": ("folded", F32, None, None),
+    "folded_f16": ("folded", F32, F16, None),
+    "bigblock_M16": ("folded", F32, None, 16),
+    "bigblock_M16_f16": ("folded", F32, F16, 16),
+    "folded_f64": ("folded", F64, None, None),
+    "bigblock_M16_f64": ("folded", F64, None, 16),
+    "staged": ("staged", F32, None, None),
+}
+# relative RMS against the f64 offline folded chain: the folded f32
+# bound, the f16 FDL tier's (tests/test_streaming.py), the f64 tier's
+FIDELITY_LIMITS = {F32: 2e-5, F16: 1e-3, F64: 1e-12}
+N_INPUTS = 8             # distinct input blocks staged on the device
+
+
+def serving_fixture(ir_taps: int = IR_TAPS):
+    """(ir (ir_taps,) float64, EQ params, ChainConfig, FilterSpec) of
+    tools/serving_bench.py:110-116."""
+    rng = np.random.default_rng(0)
+    decay = np.exp(-np.arange(ir_taps) / (ir_taps / 10.0))
+    ir = rng.normal(size=ir_taps) * decay * 0.02
+    eqp = EQParams()
+    eqp.gains_db[:] = np.linspace(-4.0, 4.0, 20)
+    return (ir, eqp, ChainConfig(sample_rate=SAMPLE_RATE),
+            FilterSpec(SAMPLE_RATE))
+
+
+def build_chain(tier: str, device="cuda", fixture=None) -> StreamingChain:
+    """The prepared StreamingChain of `tier` (rebuild-time work on the
+    host: the fold, the plans, the spectra)."""
+    kind, dtype, fdl, m = TIERS[tier]
+    ir, eqp, cfg, spec = fixture or serving_fixture()
+    if kind == "folded":
+        return StreamingChain.folded_from_ir(
+            cfg, eqp, ir, spec, block_size=BLOCK, dtype=dtype, fdl_dtype=fdl,
+            partition=None if m is None else BLOCK * m, device=device)
+    nuc = nuc_prepare(ir, BLOCK, spec, dtype=dtype, device=device)
+    return StreamingChain(cfg, eqp, nuc, dtype=dtype, fdl_dtype=fdl,
+                          device=device)
+
+
+def signal(streams: int, samples: int, device="cuda", dtype=F32, seed=1):
+    """(streams, 2, samples) noise x0.25, made on `device` from a seed."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((streams, 2, samples), generator=gen, device=dev,
+                       dtype=dtype) * 0.25
+
+
+def state_budget(ir_taps: int = IR_TAPS) -> dict:
+    """MB a stereo stream, the JAX tool's arithmetic
+    (tools/serving_bench.py `_state_budget`): FDL spectra plus per layer
+    the output ring (offset > 0) and four f32 rows of p / p+1 values,
+    from the plan of ir_taps + 57,000 taps (the fold's prefilter tail)."""
+    n = ir_taps + 57_000
+    out = {}
+    plan = plan_layers(n, BLOCK, FilterSpec(SAMPLE_RATE))
+    for bp, tag in ((4, "f32"), (2, "f16")):
+        tot = 0
+        for lp in plan.layers:
+            tot += lp.num_parts * (lp.part_size + 1) * 2 * bp
+            if lp.offset > 0:
+                tot += int(2 ** np.ceil(np.log2(
+                    lp.offset + 2 * lp.part_size))) * 4
+            tot += (2 * lp.part_size + 2 * (lp.part_size + 1)) * 4
+        out[f"3layer_{tag}"] = round(2 * tot / 2 ** 20, 2)
+    for m in (2, 4, 8, 16):
+        p = BLOCK * m
+        nparts = -(-n // p)
+        for bp, tag in ((4, "f32"), (2, "f16")):
+            tot = nparts * (p + 1) * 2 * bp + (2 * p + 2 * (p + 1)) * 4
+            out[f"bigblock_M{m}_{tag}"] = round(2 * tot / 2 ** 20, 2)
+    return out
+
+
+def _launches():
+    return dict(fk.launch_counts)
+
+
+def profile_window(chain, state, blocks, steps: int):
+    """(device operations a step, busy share) over `steps` steps traced
+    by torch.profiler, the device alone (the host's thousands of
+    operator events a staged step would cost minutes to aggregate): every
+    device event (kernels, copies, fills) and their device time over the
+    window's wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(steps):
+            state, _ = chain.step(state, blocks[k % len(blocks)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA]
+    ops = sum(e.count for e in ev)
+    busy = sum(e.self_device_time_total for e in ev) / 1e6
+    return state, ops / steps, busy / wall
+
+
+def measure_point(chain: StreamingChain, streams: int, blocks: int = 400,
+                  profile: bool = False, tier: str = "") -> dict:
+    """One serving point: `blocks` base blocks (at least 25 steps) of
+    `streams` streams through `chain` on its device (see the module
+    docstring)."""
+    t_point = time.perf_counter()
+    dev = chain.device
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    bs = chain.block_size
+    steps = max(25, blocks * BLOCK // bs) if blocks >= 25 else blocks
+    xs = [signal(streams, bs, dev, chain.dtype, seed=1 + k)
+          for k in range(N_INPUTS)]
+    # warm-up: every path of the step once (the kernels build; each tail
+    # layer fires, so the allocator holds its buffers), then a fresh state
+    state = chain.init_state((streams,))
+    warm = max([2] + [lp.part_size // (bs * chain.os_factor)
+                      for lp in chain.layers])
+    for k in range(warm):
+        state, y = chain.step(state, xs[k % N_INPUTS])
+    sync()
+    del state, y
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = chain.init_state((streams,))
+    xr = XrunDetector(SAMPLE_RATE, bs)
+    before = _launches()
+    walls, hosts = [], []
+    for k in range(steps):
+        t0 = time.perf_counter()
+        state, y = chain.step(state, xs[k % N_INPUTS])
+        t1 = time.perf_counter()
+        sync()
+        t2 = time.perf_counter()
+        walls.append(t2 - t0)
+        hosts.append(t1 - t0)
+        xr.record_step(t2 - t0)
+    after = _launches()
+    w = np.asarray(walls) * 1e3
+    budget = bs / SAMPLE_RATE * 1e3
+    row = {
+        "tier": tier, "streams": streams, "window_samples": bs,
+        "budget_ms": budget, "steps": steps,
+        "median_ms": float(np.median(w)),
+        "p90_ms": float(np.percentile(w, 90)),
+        "p95_ms": float(np.percentile(w, 95)),
+        "p99_ms": float(np.percentile(w, 99)),
+        "max_ms": float(w.max()),
+        "xruns": xr.xruns, "xrun_free": xr.xruns == 0,
+        "streams_x_realtime": streams * steps * budget / float(w.sum()),
+        "streams_x_realtime_median": streams * budget / float(np.median(w)),
+        "host_us": 1e6 * statistics.median(hosts),
+        "kernel_launches_per_step": {
+            n: (after[n] - before[n]) / steps for n in after
+            if after[n] != before[n]},
+        "state_mb_per_stream": state.nbytes() / streams / 2 ** 20,
+        "state_mb_per_stream_arith": chain.state_bytes() / 2 ** 20,
+        "finite": bool(torch.isfinite(y).all()),
+    }
+    if cuda:
+        row["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if profile:
+            # one window: a whole L2 period of the folded 3-layer plan, an
+            # L1 period of the staged step, 8 bigblock windows
+            window = min(64 if bs == BLOCK and chain.eq_params is None
+                         else 8, steps)
+            state, ops, busy = profile_window(chain, state, xs, window)
+            row["profiled_steps"] = window
+            row["device_ops_per_step"] = ops
+            row["busy"] = busy
+        row["device"] = torch.cuda.get_device_name(dev)
+    row["point_s"] = time.perf_counter() - t_point
+    del state, xs, y
+    if cuda:
+        torch.cuda.empty_cache()
+    return row
+
+
+def fidelity(tiers, seconds: float = 10.0, device="cuda", fixture=None,
+             cache=None):
+    """Each folded tier at 1 stream x `seconds` against the port's offline
+    folded chain in f64 on the plain path (`frame_mac="plain"`: torch.fft
+    and the plain MAC) on the same device and input, steady state only
+    (`StreamingChain.warmup_samples`).  Yields one row a tier, with the
+    frame kernels' launches of its streaming run.  cache: a dict that
+    keeps the built chains by tier, for the caller to use again."""
+    fixture = fixture or serving_fixture()
+    ir, eqp, cfg, spec = fixture
+    dev = resolve_device(device)
+    x = signal(1, int(SAMPLE_RATE * seconds), dev, F64, seed=3)
+    st64 = prepare_folded_convolver(ir, BLOCK, spec, cfg, eqp, dtype=F64,
+                                    device=dev)
+    ref = process_chain_fused(x, cfg, st64, frame_mac="plain")
+    del st64
+    for tier in tiers:
+        _, dtype, fdl, _ = TIERS[tier]
+        cache = {} if cache is None else cache
+        if tier not in cache:
+            cache[tier] = build_chain(tier, dev, fixture)
+        chain = cache[tier]
+        n = x.shape[-1] // chain.block_size * chain.block_size
+        fk.reset_launch_counts()
+        y, _ = chain.process(x[..., :n].to(dtype))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = _launches()
+        skip = chain.warmup_samples()
+        yield {"tier": tier, "seconds": n / SAMPLE_RATE,
+               "skip_s": skip / SAMPLE_RATE,
+               "rel_rms": rel_rms(y[..., skip:], ref[..., skip:n]),
+               "limit": FIDELITY_LIMITS[fdl or dtype],
+               "finite": bool(torch.isfinite(y).all()),
+               "layers": [(lp.part_size, lp.num_parts)
+                          for lp in chain.layers],
+               "launches": launches}
+        del chain, y
+
+
+def staged_fidelity(dtype, os_factor: int = 1, seconds: float = 5.0,
+                    device="cuda", fixture=None, soft_clip: bool = False):
+    """The staged step at 1 stream x `seconds` against the port's offline
+    `process_chain` (eq_method "scan", the same band scans over the whole
+    signal) in f64 on the plain path, on the same device and input: the
+    fixture's EQ and its IR as the unfolded 3-layer NUC (spectrum filter
+    on) at the processing rate, block 512 x os_factor; the whole output.
+    Returns (row, the frame kernels' launches of the streaming run)."""
+    ir, eqp, cfg0, _ = fixture or serving_fixture()
+    dev = resolve_device(device)
+    rate = SAMPLE_RATE * os_factor
+    cfg = ChainConfig(sample_rate=SAMPLE_RATE, oversampling_factor=os_factor,
+                      soft_clip_enabled=soft_clip, saturation_amount=0.3,
+                      eq_method="scan")
+    spec = FilterSpec(rate)
+    nuc64 = nuc_prepare(ir, BLOCK * os_factor, spec, dtype=F64, device=dev)
+    x = signal(1, int(SAMPLE_RATE * seconds) // BLOCK * BLOCK, dev, F64,
+               seed=4)
+    ref = process_chain(x, cfg, eqp, StereoConvolverState(nuc64, nuc64),
+                        frame_mac="plain")
+    nuc = nuc64 if dtype == F64 else nuc_prepare(
+        ir, BLOCK * os_factor, spec, dtype=dtype, device=dev)
+    chain = StreamingChain(cfg, eqp, nuc, dtype=dtype, device=dev)
+    fk.reset_launch_counts()
+    y, _ = chain.process(x.to(dtype))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = _launches()
+    return {"dtype": str(dtype).removeprefix("torch."),
+            "os_factor": os_factor, "soft_clip": soft_clip,
+            "seconds": x.shape[-1] / SAMPLE_RATE, "rel_rms": rel_rms(y, ref),
+            "finite": bool(torch.isfinite(y).all()),
+            "layers": [(lp.part_size, lp.num_parts, lp.offset)
+                       for lp in chain.layers]}, launches
+
+
+def frontier(windows, streams_list, fdl_dtype=None, dtype=F32, blocks=400,
+             device="cuda", fixture=None):
+    """The bigblock tier at each window of `windows` blocks for each
+    stream count, largest window first; yields each point's row and then
+    the least xrun-free window (ms) for each stream count."""
+    fixture = fixture or serving_fixture()
+    ir, eqp, cfg, spec = fixture
+    least = {}
+    for m in sorted(windows, reverse=True):
+        chain = StreamingChain.folded_from_ir(
+            cfg, eqp, ir, spec, block_size=BLOCK, dtype=dtype,
+            fdl_dtype=fdl_dtype, partition=BLOCK * m, device=device)
+        for ns in streams_list:
+            row = measure_point(chain, ns, blocks, tier=f"bigblock_M{m}")
+            row["mode"] = "frontier"
+            if row["xrun_free"]:
+                least[ns] = min(least.get(ns, m), m)
+            yield row
+        del chain
+    yield {"mode": "frontier_least_xrun_free_window_ms",
+           "fdl_dtype": str(fdl_dtype or dtype).removeprefix("torch."),
+           "by_streams": {str(ns): (least[ns] * BUDGET_MS if ns in least
+                                    else None) for ns in streams_list}}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m convopeq_tpu_torch.serve")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--tiers", nargs="*", default=["folded"],
+                    choices=sorted(TIERS))
+    ap.add_argument("--streams", type=int, nargs="*", default=[1, 32, 256])
+    ap.add_argument("--blocks", type=int, default=400)
+    ap.add_argument("--ir-taps", type=int, default=IR_TAPS)
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--frontier", action="store_true")
+    ap.add_argument("--windows", type=int, nargs="*", default=[2, 4, 8, 16])
+    ap.add_argument("--fdl-dtype", default="float32",
+                    choices=["float32", "float16"])
+    ap.add_argument("--fidelity", action="store_true")
+    ap.add_argument("--seconds", type=float, default=10.0)
+    ap.add_argument("--state-budget", action="store_true")
+    args = ap.parse_args(argv)
+    if args.state_budget:
+        print(json.dumps({"mode": "state_budget", "ir_taps": args.ir_taps,
+                          "mb_per_stream": state_budget(args.ir_taps)}))
+        return
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        print(card_description())
+    fixture = serving_fixture(args.ir_taps)
+    if args.fidelity:
+        tiers = [t for t in args.tiers if TIERS[t][0] == "folded"]
+        for row in fidelity(tiers, args.seconds, dev, fixture):
+            print(json.dumps({"mode": "fidelity", **row}))
+        return
+    if args.frontier:
+        fdl = F16 if args.fdl_dtype == "float16" else None
+        for row in frontier(args.windows, args.streams, fdl,
+                            blocks=args.blocks, device=dev,
+                            fixture=fixture):
+            print(json.dumps(row))
+        return
+    for tier in args.tiers:
+        chain = build_chain(tier, dev, fixture)
+        for ns in args.streams:
+            print(json.dumps({"mode": "per_block", **measure_point(
+                chain, ns, args.blocks, args.profile, tier)}))
+        del chain
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
