@@ -143,7 +143,30 @@
    the serving shapes (C = 512, p = 512, 4096, 32768, 8192) against
    their plain versions, beside cuFFT's time for the same transform and
    their bound.
-15. A JSON line of the kernels (launches: the f32 frame kernels' and the
+15. The application path (`ConvoPeqEngine`, the CLI, metering, limiter,
+   analyzer view) on the README's Quick start at the headline's size: the
+   1M-tap stereo IR written as a 32-bit float WAV and loaded by path,
+   eq20, EQ -> conv, soft clip 0.3, auto gain, psycho dither to 24 bits,
+   48 kHz, block 512.  (a) host seconds of the IR load as is, minimum and
+   mixed phase (a fresh mixed-phase cache: the design runs; the branch it
+   took); (b) 4 streams x 10 s, dither off, `process` in f32 and f64
+   through the kernels against the f64 plain path (2e-3, 1e-12), then
+   dither on: on the 24-bit grid, and every f32 kernel of the chain (the
+   three frame kernels, the fused kernel, the quantizer) launched in the
+   f32 call, the f64 frame kernels and the quantizer in the f64 call;
+   (c) 64 streams x 20 s with dither, f32 and f64: realtime factor, spread,
+   peak memory; (d) soft clip on -> off between two calls: the fade window
+   is crossfade_mix of the two chains; (e) `process_streaming`, 1 stream x
+   400 blocks: folded (soft clip off) against the f64 folded offline
+   chain (2e-5, osa_rfft launched) and staged against the f64 engine
+   (2e-3), the median block wall and the xruns; (f) loudness (momentary,
+   short-term, integrated) and true peak of (c)'s outputs: f32 against
+   f64 on the card (0.01 LU, 1e-5), f64 card against CPU on 2 streams
+   (1e-9 LU, 1e-12), the ms of each; (g) the CLI in a subprocess on 30 s
+   of stereo, its lines echoed, out.wav read back; (h) the max-plus peak
+   limiter on (c)'s f32 output and the analyzer view fed 512-sample
+   blocks.  Prints its own seconds.
+16. A JSON line of the kernels (launches: the f32 frame kernels' and the
    fused kernel's from the prefilter chain's run of phase 8a, the
    quantizer's from config6's of phase 6a, the f64 kernels' from the f64
    headline's of phase 11a, osa_rfft's from the folded serving run of
@@ -152,8 +175,10 @@
    serving paths' included (serve_folded, serve_folded_f64:
    14a's 3-layer f32 and f64 runs; serve_staged: 14b's 1x f32 run); the
    MACs' rows also carry their time at config3's shape, the transforms'
-   their times at the serving shapes), the card's name and power limit,
-   then the result line.
+   their times at the serving shapes; engine, engine_f64 and
+   engine_streaming: 15b's dithered f32 and f64 `process` and 15e's
+   folded stream), the card's name and power limit, then the result
+   line.
 Any failure raises, and the script exits non-zero.
 """
 import dataclasses
@@ -162,20 +187,24 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from convopeq_tpu_torch import cli as cli_mod
 from convopeq_tpu_torch import (config3, config6, headline, nuc3, parity,
                                 serve, staged)
 from convopeq_tpu_torch.device import card_description
-from convopeq_tpu_torch.models import dither
+from convopeq_tpu_torch.engine import engine as engine_mod
+from convopeq_tpu_torch.models import dither, metering
 from convopeq_tpu_torch.models import eq as eq_model
+from convopeq_tpu_torch.models.analyzer_view import AnalyzerView
 from convopeq_tpu_torch.models.chain import (
-    StagedChain, prepare_folded_convolver_oversampled, process_chain,
-    process_chain_fused)
+    StagedChain, prepare_folded_convolver,
+    prepare_folded_convolver_oversampled, process_chain, process_chain_fused)
 from convopeq_tpu_torch.models.convolver import stereo_prepare
 from convopeq_tpu_torch.models.nuc import FilterSpec
 from convopeq_tpu_torch.ops import _build
@@ -183,7 +212,10 @@ from convopeq_tpu_torch.ops import frame_conv_kernels as fk
 from convopeq_tpu_torch.ops import fused_conv_kernels as fc
 from convopeq_tpu_torch.ops import oversample
 from convopeq_tpu_torch.ops import quantize_kernels as qk
+from convopeq_tpu_torch.ops.limiter import peak_limiter
 from convopeq_tpu_torch.ops.partitioned_conv import uniform_partitioned_conv
+from convopeq_tpu_torch.runtime.crossfade import crossfade_mix
+from convopeq_tpu_torch.utils import wavio
 
 C, K, P_SIZE, NPARTS = 8, 88, 32768, 33
 QR, QN = 512, 2048                  # quantizer check shape (the plain loop)
@@ -1597,6 +1629,368 @@ def phase_serving(card):
     return by_path, shapes
 
 
+# ------------------------------------------------------------ phase 15
+APP_FIDELITY = (4, 10.0)        # streams, seconds
+APP_RTF = (64, 20.0)
+APP_STREAM_BLOCKS = 400
+APP_CLI_SECONDS = 30.0
+APP_LIMITS = {torch.float32: 2e-3, torch.float64: 1e-12}
+APP_KERNELS = {torch.float32: (*fk.F32_KERNELS, "fused_conv",
+                               "error_feedback_quantize"),
+               torch.float64: (*fk.F64_KERNELS, "error_feedback_quantize")}
+
+
+def app_engine(ir_path, dtype, cache_dir, phase=engine_mod.PHASE_AS_IS):
+    """The README's Quick start at the headline's size: the 1M-tap stereo
+    IR loaded by path (target its length), eq20, EQ -> conv, soft clip
+    0.3, auto gain, psycho dither to 24 bits, 48 kHz, block 512."""
+    eng = engine_mod.ConvoPeqEngine(headline.SAMPLE_RATE,
+                                    headline.BLOCK_SIZE, dtype=dtype,
+                                    device="cuda",
+                                    mixed_phase_cache_dir=cache_dir)
+    eng.set_eq(headline.headline_eq())
+    eng.set_soft_clip(True, 0.3)
+    eng.set_auto_gain(True)
+    eng.set_dither(dither.PSYCHOACOUSTIC, 24)
+    eng.load_impulse_response(ir_path, phase_mode=phase,
+                              target_seconds=headline.IR_LEN
+                              / headline.SAMPLE_RATE)
+    return eng
+
+
+def app_eq_flags():
+    """eq20 as the CLI's --eq flags (every band peaking at its default
+    frequency and Q)."""
+    p = headline.headline_eq()
+    names = {v: k for k, v in cli_mod.BAND_TYPES.items()}
+    flags = []
+    for b in range(len(p.gains_db)):
+        flags += ["--eq", f"{b}:{names[int(p.band_types[b])]}:"
+                  f"{float(p.freqs[b])!r}:{float(p.gains_db[b])!r}:"
+                  f"{float(p.qs[b])!r}"]
+    return flags
+
+
+def app_plain(eng64, x):
+    """The f64 plain path of the engine's chain on x (dither off)."""
+    return process_chain(x.double(), eng64._effective_config(),
+                         eng64.eq_params, eng64._conv_state,
+                         frame_mac="plain")
+
+
+def app_on_grid(y, bits=24):
+    g = y.double() * 2.0 ** (bits - 1)
+    return bool(torch.isfinite(y).all()) and bool((g == g.round()).all())
+
+
+def phase_app_load(card, tmp):
+    """15a: the IR written as a 32-bit float WAV and loaded by path, as
+    is, minimum and mixed phase (fresh mixed-phase cache: the design
+    runs); host seconds of each load."""
+    ir_path = tmp / "ir.wav"
+    wavio.write_wav(ir_path, headline.headline_ir(), int(headline.SAMPLE_RATE))
+    secs = {}
+    for name, phase in (("as_is", engine_mod.PHASE_AS_IS),
+                        ("minimum", engine_mod.PHASE_MINIMUM),
+                        ("mixed", engine_mod.PHASE_MIXED)):
+        t0 = time.perf_counter()
+        eng = app_engine(ir_path, torch.float32, tmp / f"mp_{name}", phase)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        check(np.all(np.isfinite(eng._ir_prepared)),
+              f"15a: the {name} IR is finite")
+        extra = (f", branches {eng.mixed_phase_branches}"
+                 if name == "mixed" else "")
+        print(f"15a IR load {name}: {secs[name]:.2f} s host, peak latency "
+              f"{eng._ir_peak_latency}, scale {eng._ir_scale:.6g}{extra} "
+              f"[{card}]")
+        if name == "mixed":
+            check(len(eng.mixed_phase_branches) == 2 and all(
+                b in ("allpass", "fallback")
+                for b in eng.mixed_phase_branches),
+                "15a: mixed phase designed for both channels")
+        del eng
+    return ir_path, secs
+
+
+def phase_app_fidelity(card, eng32, eng64):
+    """15b: dither off, f32 and f64 through the kernels against the f64
+    plain path; then dither on (the counted runs): on the 24-bit grid."""
+    batch, seconds = APP_FIDELITY
+    x = staged.signal(batch, seconds, "cuda")
+    for eng in (eng32, eng64):
+        eng.set_dither(dither.PSYCHOACOUSTIC, 0)
+    ref = app_plain(eng64, x)
+    counts = {}
+    for eng, dt in ((eng32, torch.float32), (eng64, torch.float64)):
+        y = eng.process(x)
+        rel = float(((y.double() - ref).pow(2).mean()
+                     / ref.pow(2).mean()).sqrt())
+        print(f"15b engine {batch}x{seconds:g}s {str(dt)[6:]} kernels, "
+              f"dither off, vs f64 plain: rel RMS {rel:.3e} (tol "
+              f"{APP_LIMITS[dt]:g}), finite {bool(torch.isfinite(y).all())} "
+              f"[{card}]")
+        check(y.shape == x.shape and bool(torch.isfinite(y).all()),
+              "15b: engine output finite, shaped")
+        check(rel <= APP_LIMITS[dt], f"15b: {dt} engine vs the plain path")
+        del y
+    for eng, dt in ((eng32, torch.float32), (eng64, torch.float64)):
+        eng.set_dither(dither.PSYCHOACOUSTIC, 24)
+        reset_launches()
+        yd = eng.process(x)
+        torch.cuda.synchronize()
+        counts[dt] = launches_now()
+        must = APP_KERNELS[dt]
+        print(f"15b engine {str(dt)[6:]} dithered: on the 24-bit grid "
+              f"{app_on_grid(yd)}, launches {counts[dt]} (must: {must}) "
+              f"[{card}]")
+        check(app_on_grid(yd), "15b: dithered output on the 24-bit grid")
+        check(all(counts[dt][n] > 0 for n in must),
+              f"15b: every kernel of the {dt} engine launched")
+        del yd
+    return counts[torch.float32], counts[torch.float64]
+
+
+def phase_app_rate(card, eng32, eng64):
+    """15c: process with dither at 64 x 20 s, f32 and f64: RTF (median of
+    3 after a warm-up), spread, peak memory, and the device time of one
+    call by kernel (the ten largest); returns the outputs."""
+    batch, seconds = APP_RTF
+    outs = {}
+    for eng, dt in ((eng32, torch.float32), (eng64, torch.float64)):
+        x = staged.signal(batch, seconds, "cuda", dt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = headline.measure(eng.process, x, reps=3)
+        peak = torch.cuda.max_memory_allocated()
+        report_rtf("15c engine", batch, seconds, walls, peak, card,
+                   str(dt)[6:])
+        wall, rows = headline.profile_call(lambda: eng.process(x))
+        busy = sum(r[1] for r in rows)
+        print(f"15c engine {str(dt)[6:]} profiled call: wall {wall:.2f} ms, "
+              f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}%), "
+              f"{sum(r[2] for r in rows)} device ops; the largest "
+              f"[{card}]:")
+        for kernel, ms, count in rows[:10]:
+            print(f"  {ms:9.3f} ms  x{count:<4d} {kernel[:100]}")
+        outs[dt] = eng.process(x)
+        check(app_on_grid(outs[dt]), "15c: output on the 24-bit grid")
+        del x
+    return outs
+
+
+def phase_app_crossfade(card, eng32):
+    """15d: soft clip on -> off between two process calls (dither off):
+    the fade window is crossfade_mix of the old chain's output (on the
+    window plus its forward horizon, as the engine runs it) and the new
+    chain's, bit for bit; and the old chain's output there is its output
+    on the whole input within the staged f32 bound (2e-3 relative RMS:
+    the scans' trees round differently at another length)."""
+    eng32.set_dither(dither.PSYCHOACOUSTIC, 0)
+    eng32.crossfade_enabled = True
+    x = staged.signal(4, 2.0, "cuda", seed=5)
+    eng32.process(x)
+    old = eng32._published
+    eng32.set_soft_clip(False)
+    y = eng32.process(x)
+    ev = [e for e in eng32.telemetry.events if e.category == "crossfade"]
+    check(bool(ev), "15d: the structural change crossfaded")
+    ft = ev[-1].detail["fade_ms"] * 1e-3
+    n = int(round(ft * headline.SAMPLE_RATE))
+    y_old = old["fn"](x[..., :n + old["margin"]], old["conv"])[..., :n]
+    y_new = eng32._published["fn"](x, eng32._conv_state)
+    want = crossfade_mix(y_old, y_new[..., :n], headline.SAMPLE_RATE, ft)
+    y_full = old["fn"](x, old["conv"])[..., :n]
+    rel = float(((y_old - y_full).double().pow(2).mean()
+                 / y_full.double().pow(2).mean()).sqrt())
+    exact = bool(torch.equal(y[..., :n], want))
+    after = bool(torch.equal(y[..., n:], y_new[..., n:]))
+    print(f"15d crossfade soft clip on -> off: {n} samples "
+          f"({ev[-1].detail['triggers']}), window equal to the mix {exact}, "
+          f"after it equal {after}, the old chain on the window vs the "
+          f"whole input rel RMS {rel:.3e} (tol 2e-3), finite "
+          f"{bool(torch.isfinite(y).all())} [{card}]")
+    check(bool(torch.isfinite(y).all()) and exact and after and rel <= 2e-3,
+          "15d: the fade window is the mix of the two chains")
+    eng32.crossfade_enabled = False
+    eng32.set_soft_clip(True, 0.3)
+    eng32.set_dither(dither.PSYCHOACOUSTIC, 24)
+
+
+def phase_app_streaming(card, eng32, eng64):
+    """15e: process_streaming at 1 stream x 400 blocks, dither off: folded
+    (soft clip off: the fold needs an LTI chain) against the f64 folded
+    offline chain on the plain path, <= 2e-5; staged (the Quick start
+    chain) against the f64 engine's process, <= 2e-3; the median block
+    wall and the xruns."""
+    n = APP_STREAM_BLOCKS * headline.BLOCK_SIZE
+    x = staged.signal(1, n / headline.SAMPLE_RATE, "cuda", seed=6)
+    for eng in (eng32, eng64):
+        eng.set_dither(dither.PSYCHOACOUSTIC, 0)
+        eng.set_soft_clip(False)
+    cfg = eng64._effective_config()
+    folded = prepare_folded_convolver(
+        torch.from_numpy(eng64._ir_prepared), headline.BLOCK_SIZE,
+        eng64.filter_spec, cfg, eng64.eq_params, dtype=torch.float64,
+        partition=None, device="cuda")
+    refs = {"folded": process_chain_fused(x.double(), cfg, folded,
+                                          frame_mac="plain")}
+    del folded
+    for eng in (eng32, eng64):
+        eng.set_soft_clip(True, 0.3)
+    refs["staged"] = eng64.process(x)
+    counts = {}
+    for name, tol in (("folded", 2e-5), ("staged", 2e-3)):
+        eng32.set_soft_clip(name == "staged", 0.3)
+        ref = refs[name]
+        reset_launches()
+        y, _ = eng32.process_streaming(x, folded=name == "folded")
+        torch.cuda.synchronize()
+        counts[name] = launches_now()
+        walls = eng32.last_stream_walls
+        rel = float(((y.double() - ref).pow(2).mean()
+                     / ref.pow(2).mean()).sqrt())
+        rep = eng32.telemetry_report()
+        print(f"15e streaming {name} 1 x {APP_STREAM_BLOCKS} blocks: rel RMS "
+              f"{rel:.3e} vs the f64 offline chain (tol {tol:g}), median "
+              f"block wall {statistics.median(walls) * 1e3:.3f} ms (max "
+              f"{max(walls) * 1e3:.3f}; budget "
+              f"{headline.BLOCK_SIZE / headline.SAMPLE_RATE * 1e3:.2f}), "
+              f"xruns {rep['xruns']} of {rep['steps']} steps so far, "
+              f"launches {counts[name]} [{card}]")
+        check(bool(torch.isfinite(y).all()) and rel <= tol,
+              f"15e: {name} streaming matches the offline chain")
+    check(counts["folded"]["osa_rfft"] > 0
+          and counts["folded"]["irfft_valid"] > 0,
+          "15e: the folded step launched osa_rfft and irfft_valid")
+    for eng in (eng32, eng64):
+        eng.set_soft_clip(True, 0.3)
+        eng.set_dither(dither.PSYCHOACOUSTIC, 24)
+    return counts["folded"]
+
+
+def app_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_app_metering(card, outs):
+    """15f: momentary, short-term and integrated loudness and true peak of
+    15c's outputs on the card: f32 against the same computation in f64
+    on the f32 output; f64 on the card against the CPU on two streams."""
+    sr = headline.SAMPLE_RATE
+    fns = {"momentary": lambda y: metering.loudness_momentary(y, sr),
+           "short_term": lambda y: metering.loudness_short_term(y, sr),
+           "integrated": lambda y: metering.loudness_integrated(y, sr),
+           "true_peak": metering.true_peak}
+    y32, y64 = outs[torch.float32], outs[torch.float64]
+    for name, fn in fns.items():
+        got, ms = app_time(lambda: fn(y32))
+        ref, ms64 = app_time(lambda: fn(y32.double()))
+        if name == "true_peak":
+            err = float((got.double() - ref).abs().max() / ref.abs().max())
+            tol = 1e-5
+        else:
+            err = float((got.double() - ref).abs().max())
+            tol = 0.01
+        print(f"15f {name} f32: {ms:.1f} ms, max |diff| vs f64 on the card "
+              f"{err:.3e} ({'relative' if name == 'true_peak' else 'LU'}, "
+              f"tol {tol:g}); f64 {ms64:.1f} ms [{card}]")
+        check(bool(torch.isfinite(got[got > -np.inf]).all())
+              and err <= tol, f"15f: f32 {name} within its tolerance")
+        sub = y64[:2]
+        got64, ms_sub = app_time(lambda: fn(sub))
+        cpu = fn(sub.cpu())
+        if name == "true_peak":
+            err64 = float((got64.cpu() - cpu).abs().max() / cpu.abs().max())
+            tol64 = 1e-12
+        else:
+            err64 = float((got64.cpu() - cpu).abs().max())
+            tol64 = 1e-9
+        print(f"15f {name} f64 (2 streams): card vs CPU max |diff| "
+              f"{err64:.3e} (tol {tol64:g}), {ms_sub:.1f} ms [{card}]")
+        check(err64 <= tol64, f"15f: f64 {name}, card vs CPU")
+
+
+def phase_app_cli(card, tmp, ir_path):
+    """15g: the CLI end to end in a subprocess on 30 s of stereo, the
+    Quick start's flags (the whole 1M-tap IR: --ir-seconds its length)."""
+    n = int(APP_CLI_SECONDS * headline.SAMPLE_RATE)
+    x = staged.signal(1, APP_CLI_SECONDS, "cuda", seed=7)[0].cpu().numpy()
+    wavio.write_wav(tmp / "in.wav", x, int(headline.SAMPLE_RATE))
+    cmd = [sys.executable, "-m", "convopeq_tpu_torch.cli",
+           str(tmp / "in.wav"), str(tmp / "out.wav"), "--ir", str(ir_path),
+           "--ir-seconds", repr(headline.IR_LEN / headline.SAMPLE_RATE),
+           *app_eq_flags(), "--softclip", "0.3", "--auto-gain",
+           "--dither", "psycho:24", "--measure"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parent)
+    secs = time.perf_counter() - t0
+    for line in run.stdout.strip().splitlines():
+        print(f"15g cli: {line}")
+    print(f"15g cli exit {run.returncode} in {secs:.1f} s [{card}]")
+    check(run.returncode == 0, f"15g: the CLI exited 0 ({run.stderr[-2000:]})")
+    y = wavio.read_wav(tmp / "out.wav").samples
+    check(y.shape == (2, n) and bool(np.isfinite(y).all()),
+          "15g: out.wav has the input's length and is finite")
+
+
+def phase_app_views(card, outs):
+    """15h: the max-plus limiter on 15c's f32 output and the analyzer
+    view fed 512-sample blocks of its first stream."""
+    y = outs[torch.float32]
+    (lim, env), ms = app_time(lambda: peak_limiter(y, headline.SAMPLE_RATE))
+    print(f"15h peak_limiter (max-plus) {tuple(y.shape)}: {ms:.1f} ms, "
+          f"finite {bool(torch.isfinite(lim).all())}, max |y| "
+          f"{float(lim.abs().max()):.4f} [{card}]")
+    check(bool(torch.isfinite(lim).all()) and bool(torch.isfinite(env).all()),
+          "15h: limiter output finite")
+    view = AnalyzerView(headline.SAMPLE_RATE)
+    blocks = y[0].split(headline.BLOCK_SIZE, dim=-1)
+    t0 = time.perf_counter()
+    for blk in blocks:
+        view.push(blk)
+    ms = (time.perf_counter() - t0) * 1e3
+    bars = view.bars()
+    ok = all(np.isfinite(v).all() for v in bars.values())
+    print(f"15h AnalyzerView {len(blocks)} blocks of 512: {ms:.1f} ms "
+          f"({ms / len(blocks):.3f} ms a push), bars finite {ok} [{card}]")
+    check(ok, "15h: analyzer bars finite")
+
+
+def phase_app(card):
+    """Phase 15: the application path (ConvoPeqEngine, the CLI, metering,
+    limiter, analyzer view); returns the counts by path."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        ir_path, _ = phase_app_load(card, tmp)
+        eng32 = app_engine(ir_path, torch.float32, tmp / "mp32")
+        eng64 = app_engine(ir_path, torch.float64, tmp / "mp64")
+        # each check sets the config it needs: no fade from the last one
+        # (15d turns it on for its own check)
+        eng32.crossfade_enabled = eng64.crossfade_enabled = False
+        by_path = {}
+        by_path["engine"], by_path["engine_f64"] = \
+            phase_app_fidelity(card, eng32, eng64)
+        outs = phase_app_rate(card, eng32, eng64)
+        phase_app_crossfade(card, eng32)
+        by_path["engine_streaming"] = phase_app_streaming(card, eng32, eng64)
+        phase_app_metering(card, outs)
+        phase_app_views(card, outs)
+        del outs, eng32, eng64
+        torch.cuda.empty_cache()
+        phase_app_cli(card, tmp, ir_path)
+    print(f"phase 15 (application path): {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    return by_path
+
+
 def main():
     card = phase_environment()
     phase_build(card)
@@ -1620,6 +2014,7 @@ def main():
     by_path.update(phase_config3_staged(card))
     serving, serving_shapes = phase_serving(card)
     by_path.update(serving)
+    by_path.update(phase_app(card))
     by_path["self_check"] = self_check
     f64 = by_path["headline_f64"]
     launches = {**by_path["prefilter"], "error_feedback_quantize":

@@ -13,7 +13,11 @@ EQ's band cascade and combined response, the AGC, the output filter's
 biquad scans and the analyzer's STFT as signal passes), and the serving
 runtime (`runtime/streaming.py` `StreamingChain`, the block-at-a-time
 step with its state, staged or folded, in f32, f16 delay line or f64;
-`runtime/crossfade.py`, `runtime/telemetry.py`; `serve.py`).  Their
+`runtime/crossfade.py`, `runtime/telemetry.py`; `serve.py`), and the
+application path: `engine/engine.py` `ConvoPeqEngine` (the IR loader with
+minimum and mixed phase, `process`, `process_streaming`, presets) and the
+CLI (`python -m convopeq_tpu_torch.cli`), with the metering, limiter,
+analyzer view and IR preparation they run.  Their
 overlap-save partitioned convolutions run on an NVIDIA H100 through
 hand-written CUDA kernels: three frame kernels in f32 and in f64, and the
 forward of materialized frames (`ops/frame_conv_kernels.py`), and the f32

@@ -1,15 +1,16 @@
-"""IR analysis, the planner's part (counterpart of
-convopeq_tpu/ir/analyzer.py:19-81; src/IRAnalyzer.{h,cpp}).  Host NumPy
-f64.
+"""IR analysis (counterpart of convopeq_tpu/ir/analyzer.py;
+src/IRAnalyzer.{h,cpp}).  Host NumPy f64.
 
 estimateMaxFrequencyResponseGain (IRAnalyzer.cpp:62-155): a Tukey
 (alpha = 0.5) window over the first <= 65,536 samples, a power-of-two
 FFT, the largest magnitude over the bins with 3-point log-Gaussian peak
 interpolation, divided by the window's coherent gain (its mean over the
 analyzed span).  Feeds the AutoGainPlanner's irFreqPeakGainDb.
-`analyze_ir` and IRFinalAnalysis are not ported yet.
+`analyze_ir` gives the IRFinalAnalysis metrics (IRAnalyzer.h:19-50).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -75,3 +76,32 @@ def estimate_max_frequency_gain(ir: np.ndarray) -> float:
 def ir_peak_gain_db(ir: np.ndarray) -> float:
     """irFreqPeakGainDb for the AutoGainPlanner input."""
     return float(20.0 * np.log10(max(estimate_max_frequency_gain(ir), 1e-18)))
+
+
+@dataclass
+class IRFinalAnalysis:
+    """IRFinalAnalysis metrics (IRAnalyzer.h:19-50)."""
+    peak: float
+    peak_db: float
+    rms: float
+    rms_db: float
+    l1_norm: float
+    l1_db: float
+    freq_peak_gain: float
+    freq_peak_gain_db: float
+
+
+def analyze_ir(ir: np.ndarray) -> IRFinalAnalysis:
+    """Peak, RMS, the largest channel's L1 norm and the frequency-response
+    peak of `ir` ((N,) or (C, N)), each also in dB (floor 1e-18)."""
+    ir = np.asarray(ir, np.float64)
+
+    def db(v):
+        return float(20.0 * np.log10(max(v, 1e-18)))
+    peak = float(np.abs(ir).max()) if ir.size else 0.0
+    rms = float(np.sqrt(np.mean(ir * ir))) if ir.size else 0.0
+    l1 = float(np.abs(ir).sum(axis=-1).max()) if ir.size else 0.0
+    fp = estimate_max_frequency_gain(ir)
+    return IRFinalAnalysis(peak=peak, peak_db=db(peak), rms=rms, rms_db=db(rms),
+                           l1_norm=l1, l1_db=db(l1), freq_peak_gain=fp,
+                           freq_peak_gain_db=db(fp))

@@ -116,16 +116,26 @@ def test_folded_chain_rejects_unported_plans():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, convopeq_tpu_torch.headline, convopeq_tpu_torch.convert;"
-            "import convopeq_tpu_torch.ops.frame_conv_kernels;"
-            "import convopeq_tpu_torch.ops.fused_conv_kernels;"
-            "import convopeq_tpu_torch.nuc3, convopeq_tpu_torch.models.nuc;"
-            "import convopeq_tpu_torch.models.convolver;"
-            "print('jax' in sys.modules)")
+    """Every module of the port (walked with pkgutil, the engine, the CLI
+    and the IR preparation included) and chip_smoke.py import without
+    bringing in jax or the JAX package."""
+    code = ("import importlib, pkgutil, sys, convopeq_tpu_torch as p;"
+            "names = [m.name for m in pkgutil.walk_packages("
+            "p.__path__, 'convopeq_tpu_torch.')];"
+            "[importlib.import_module(n) for n in names];"
+            "import chip_smoke;"
+            "print(' '.join(names));"
+            "print('jax' in sys.modules, 'convopeq_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,
                          cwd=Path(__file__).resolve().parent.parent)
-    assert out.stdout.strip() == "False"
+    names, flags = out.stdout.strip().splitlines()
+    for name in ("engine.engine", "engine.cache", "cli", "ir.phase",
+                 "ir.allpass", "ir.cmaes", "models.metering",
+                 "models.analyzer_view", "ops.limiter", "utils.wavio",
+                 "headline", "ops.frame_conv_kernels", "runtime.streaming"):
+        assert f"convopeq_tpu_torch.{name}" in names.split(), name
+    assert flags == "False False"
 
 
 def test_cuda_device_raises_without_a_card():
