@@ -166,7 +166,34 @@
    of stereo, its lines echoed, out.wav read back; (h) the max-plus peak
    limiter on (c)'s f32 output and the analyzer view fed 512-sample
    blocks.  Prints its own seconds.
-16. A JSON line of the kernels (launches: the f32 frame kernels' and the
+16. The last modules (`runtime/native_serving.py` over the native
+   library, the CLI's --serve, `models/learner.py` with the quantizer's
+   per-row form, live learning, `runtime/evidence.py`, `parallel/`):
+   (a) 3 streams x 12 blocks through NativeServingLoop over the folded
+   f32 serving chain (the 1M-tap fixture), a producer thread a stream:
+   every window equal to the direct step on its gathered input bit for
+   bit, each stream's blocks committed in order; (b) `serve.py --native`'s
+   points (256 streams of bigblock_M16 f16, 25 windows of 170.67 ms; the
+   folded tier per block at 1 and 32 streams): served blocks, underruns,
+   xruns, overflows, drops, average and maximum wall against the budget,
+   streams x realtime, host-to-device and device-to-host MB a window, a
+   JSON line each; (c) the CLI with --serve on 10 s of stereo (the
+   room-correction IR, EQ bypassed): out.wav equal to process_streaming
+   of an engine with the same flags, bit for bit; (d) one learner
+   generation at 48 kHz / 16 bits / mode 0 (eval_blocks 1) and 384 kHz /
+   24 bits / mode 5 (eval_blocks 16): one quantizer launch a generation,
+   the per-row kernel's errors equal to the plain version on the card and
+   to 18 launches of the shared form bit for bit, the costs from each
+   equal, the generation's wall split into simulation (device) and
+   evaluator (host), the per-row kernel's time at R 144 x N 4,096 and
+   65,536 beside its bounds; (e) live learning in an ADAPTIVE9 16-bit
+   engine streaming folded until two generations complete: a bank
+   published mid-stream, the median block wall and xruns with learning
+   off and on; (f) the evidence export of that engine: the manifest
+   verifies, an edited artifact fails it, the payload tier names the
+   card; (g) `parallel.dryrun_multichip(4)` over CPU gloo processes.
+   Prints its own seconds.
+17. A JSON line of the kernels (launches: the f32 frame kernels' and the
    fused kernel's from the prefilter chain's run of phase 8a, the
    quantizer's from config6's of phase 6a, the f64 kernels' from the f64
    headline's of phase 11a, osa_rfft's from the folded serving run of
@@ -177,8 +204,10 @@
    MACs' rows also carry their time at config3's shape, the transforms'
    their times at the serving shapes; engine, engine_f64 and
    engine_streaming: 15b's dithered f32 and f64 `process` and 15e's
-   folded stream), the card's name and power limit, then the result
-   line.
+   folded stream; learner: 16d's two generations, serve_native: 16b's
+   folded 32-stream point; the quantizer's row carries its per-row
+   form's times from 16d), the card's name and power limit, then the
+   result line.
 Any failure raises, and the script exits non-zero.
 """
 import dataclasses
@@ -196,16 +225,17 @@ import torch
 
 from convopeq_tpu_torch import cli as cli_mod
 from convopeq_tpu_torch import (config3, config6, headline, nuc3, parity,
-                                serve, staged)
+                                serve, staged, train_banks)
 from convopeq_tpu_torch.device import card_description
 from convopeq_tpu_torch.engine import engine as engine_mod
-from convopeq_tpu_torch.models import dither, metering
+from convopeq_tpu_torch.models import dither, learner, metering
 from convopeq_tpu_torch.models import eq as eq_model
 from convopeq_tpu_torch.models.analyzer_view import AnalyzerView
 from convopeq_tpu_torch.models.chain import (
     StagedChain, prepare_folded_convolver,
     prepare_folded_convolver_oversampled, process_chain, process_chain_fused)
 from convopeq_tpu_torch.models.convolver import stereo_prepare
+from convopeq_tpu_torch.models.gain_planner import EQ_THEN_CONVOLVER
 from convopeq_tpu_torch.models.nuc import FilterSpec
 from convopeq_tpu_torch.ops import _build
 from convopeq_tpu_torch.ops import frame_conv_kernels as fk
@@ -214,6 +244,8 @@ from convopeq_tpu_torch.ops import oversample
 from convopeq_tpu_torch.ops import quantize_kernels as qk
 from convopeq_tpu_torch.ops.limiter import peak_limiter
 from convopeq_tpu_torch.ops.partitioned_conv import uniform_partitioned_conv
+from convopeq_tpu_torch.parallel import dryrun
+from convopeq_tpu_torch.runtime import evidence, native_serving
 from convopeq_tpu_torch.runtime.crossfade import crossfade_mix
 from convopeq_tpu_torch.utils import wavio
 
@@ -1428,7 +1460,8 @@ def phase_config3_staged(card):
 
 FOLDED_TIERS = ("folded", "folded_f16", "bigblock_M16", "bigblock_M16_f16",
                 "folded_f64", "bigblock_M16_f64")
-# 14c: (tier, stream counts), 400 blocks a point
+# 14c: (tier, stream counts), 400 blocks a point (the staged tier, four
+# times over its budget a block, 50)
 SERVING_POINTS = (("folded", (1, 32, 256, 1024)),
                   ("folded_f16", (256, 1024)),
                   ("bigblock_M16", (256, 1024)),
@@ -1436,6 +1469,8 @@ SERVING_POINTS = (("folded", (1, 32, 256, 1024)),
                   ("folded_f64", (1, 256, 1024)),
                   ("staged", (1, 32)))
 SERVING_BLOCKS = 400
+STAGED_BLOCKS = 50
+STAGED_SECONDS = 2.5            # 14b: 1 stream, at each of its three runs
 SERVING_PARTS = (512, 4096, 32768, 8192)   # 14d: the layers' partitions
 SERVING_C = 512
 
@@ -1480,14 +1515,15 @@ def phase_serving_fidelity(card, fixture, cache):
 def phase_serving_staged(card, fixture):
     """14b: the staged step against the offline process_chain in f64 on
     the plain path: 1x f32 (2e-3) and f64 (1e-9), 4x with the soft clip
-    in f64 (1e-7), 1 stream x 5 s each (L2 of the 1M-tap NUC, at 5.58 s,
-    is heard in 14a's folded runs).  Returns the 1x f32 run's counts."""
+    in f64 (1e-7), 1 stream x STAGED_SECONDS each (L2 of the 1M-tap NUC,
+    at 5.58 s, is heard in 14a's folded runs).  Returns the 1x f32 run's
+    counts."""
     t0 = time.perf_counter()
     counts = None
     for dtype, os_factor, seconds, clip, limit in (
-            (torch.float32, 1, 5.0, False, 2e-3),
-            (torch.float64, 1, 5.0, False, 1e-9),
-            (torch.float64, 4, 5.0, True, 1e-7)):
+            (torch.float32, 1, STAGED_SECONDS, False, 2e-3),
+            (torch.float64, 1, STAGED_SECONDS, False, 1e-9),
+            (torch.float64, 4, STAGED_SECONDS, True, 1e-7)):
         reset_launches()
         row, fk_counts = serve.staged_fidelity(dtype, os_factor, seconds,
                                                "cuda", fixture, clip)
@@ -1517,8 +1553,9 @@ def phase_serving_points(card, fixture, cache):
     for tier, streams in SERVING_POINTS:
         chain = cache.pop(tier, None) or serve.build_chain(
             tier, "cuda", fixture)
+        blocks = STAGED_BLOCKS if tier == "staged" else SERVING_BLOCKS
         for ns in streams:
-            row = serve.measure_point(chain, ns, SERVING_BLOCKS, profile=True,
+            row = serve.measure_point(chain, ns, blocks, profile=True,
                                       tier=tier)
             print(json.dumps({"serving_point": row, "card": card}))
             check(row["finite"], f"serve {tier} x{ns} output finite")
@@ -1991,6 +2028,399 @@ def phase_app(card):
     return by_path
 
 
+# ------------------------------------------------------------ phase 16
+NATIVE_EQUIV = (3, 12)          # streams, blocks (16a)
+SERVE_CLI_SECONDS = 10.0        # 16c
+# 16d: (sample rate, bits, learning mode, eval_blocks)
+LEARN_POINTS = ((48000.0, 16, 0, 1), (384000.0, 24, 5, 16))
+LIVE_CHUNK_BLOCKS = 64          # 16e: blocks a process_streaming call
+LIVE_BOUND_S = 120.0
+# the f64 lattice_fir step's chain of dependent operations, in cycles at
+# the card's measured latencies (csrc/error_feedback_quantize.cu's note)
+F64_FIR_CHAIN_CYCLES = 221
+
+
+def replay_check(chain, recorded, popped, n_streams, n_blocks):
+    """The serving loop's recorded windows (input, output) replayed
+    through the direct step from a fresh state, bit for bit; each
+    stream's committed blocks the f32 casts of the outputs at the windows
+    it was ready in, its inputs in order.  Returns the windows."""
+    state = chain.init_state((n_streams,))
+    for xin, y in recorded:
+        state, yd = chain.step(state, xin)
+        check(torch.equal(yd, y), "16a: a served window equals the direct "
+              "step on its gathered input, bit for bit")
+    for i in range(n_streams):
+        ready = [y[i] for xin, y in recorded if float(xin[i].abs().max()) > 0]
+        check(len(ready) == len(popped[i]) == n_blocks,
+              f"16a: stream {i}: {n_blocks} blocks committed and popped")
+        for y, out in zip(ready, popped[i]):
+            check(np.array_equal(out, y.float().cpu().numpy()),
+                  f"16a: stream {i}'s popped block equals its window")
+    return len(recorded)
+
+
+def phase_native_equivalence(card, chain):
+    """16a: 3 streams x 12 blocks through NativeServingLoop over the
+    folded f32 chain, a producer thread a stream, against the direct
+    step on the same gathered blocks."""
+    import threading
+    n_streams, n_blocks = NATIVE_EQUIV
+    gen = torch.Generator().manual_seed(16)
+    x = (torch.randn((n_streams, n_blocks, 2, chain.block_size),
+                     generator=gen) * 0.25).numpy()
+    loop = native_serving.NativeServingLoop(chain, n_streams)
+    recorded = []
+    step = chain.step
+
+    def recording_step(state, block):
+        state, y = step(state, block)
+        recorded.append((block.clone(), y.clone()))
+        return state, y
+
+    chain.step = recording_step
+
+    def produce(i):
+        for k in range(n_blocks):
+            while not loop.push(i, x[i, k]):
+                time.sleep(1e-4)
+
+    threads = [threading.Thread(target=produce, args=(i,))
+               for i in range(n_streams)]
+    for t in threads:
+        t.start()
+    popped = {i: [] for i in range(n_streams)}
+    deadline = time.monotonic() + 60.0
+    try:
+        while sum(map(len, popped.values())) < n_streams * n_blocks:
+            check(time.monotonic() < deadline, "16a: served in 60 s")
+            loop.serve_window()
+            for i in range(n_streams):
+                b = loop.pop(i)
+                while b is not None:
+                    popped[i].append(b)
+                    b = loop.pop(i)
+    finally:
+        del chain.step
+        for t in threads:
+            t.join(timeout=10)
+    windows = replay_check(chain, recorded, popped, n_streams, n_blocks)
+    st = loop.stats()
+    print(f"16a native plane {n_streams} streams x {n_blocks} blocks, "
+          f"folded f32, producer threads: {windows} windows, every one "
+          f"equal to the direct step bit for bit, {st['served_blocks']} "
+          f"blocks committed in order, underruns {st['underruns']} [{card}]")
+
+
+def phase_native_points(card, fixture, folded):
+    """16b: serve.py --native's points; returns the folded 32-stream
+    point's launch counts."""
+    counts = None
+    for tier, ns, nwin in serve.NATIVE_POINTS:
+        chain = folded if tier == "folded" else serve.build_chain(
+            tier, "cuda", fixture)
+        reset_launches()
+        row = serve.native_point(chain, ns, nwin, tier=tier)
+        launches = launches_now()
+        if tier == "folded" and ns == 32:
+            counts = launches
+        print(f"16b native {tier} x{ns}: {row['windows_served']} windows of "
+              f"{row['window_samples']} ({row['window_budget_ms']:.2f} ms), "
+              f"served {row['served_blocks']} blocks, underruns "
+              f"{row['underruns']}, xruns {row['xruns']}, overflows "
+              f"{row['in_overflows']}, drops {row['out_drops']}; wall avg "
+              f"{row['avg_wall_ms']:.3f} / max {row['max_wall_ms']:.3f} ms "
+              f"against {row['budget_ms']:.2f}, of it the dispatcher's host "
+              f"part {row['host_ms_per_window']:.3f} ms (its thread's CPU "
+              f"{row['host_cpu_ms_per_window']:.3f} ms); "
+              f"{row['streams_x_realtime']:.1f} streams x realtime; H2D and "
+              f"D2H "
+              f"{row['h2d_mb_per_window']:.2f} MB a window; launches "
+              f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+        print(json.dumps({"native_serving": row, "card": card}))
+        check(row["windows_served"] >= nwin,
+              f"16b: {tier} x{ns} served its {nwin} windows")
+        if tier != "folded":
+            del chain
+            torch.cuda.empty_cache()
+    check(counts["osa_rfft"] > 0 and counts["irfft_valid"] > 0,
+          "16b: the folded native point launched osa_rfft and irfft_valid")
+    return counts
+
+
+def phase_serve_cli(card, tmp):
+    """16c: the CLI with --serve on 10 s of stereo (the room-correction
+    IR, EQ bypassed: the staged step), out.wav against process_streaming
+    of an engine with the same flags on the same input, bit for bit."""
+    sr = headline.SAMPLE_RATE
+    n = int(SERVE_CLI_SECONDS * sr)
+    x = staged.signal(1, SERVE_CLI_SECONDS, "cuda", seed=9)[0].cpu().numpy()
+    wavio.write_wav(tmp / "serve_in.wav", x, int(sr))
+    wavio.write_wav(tmp / "room.wav", nuc3.room_ir(), int(sr), bits=64,
+                    float_format=True)
+    cmd = [sys.executable, "-m", "convopeq_tpu_torch.cli",
+           str(tmp / "serve_in.wav"), str(tmp / "serve_out.wav"), "--ir",
+           str(tmp / "room.wav"), "--serve"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parent)
+    secs = time.perf_counter() - t0
+    for line in run.stdout.strip().splitlines():
+        print(f"16c cli: {line}")
+    check(run.returncode == 0, f"16c: the CLI exited 0 ({run.stderr[-2000:]})")
+    eng = engine_mod.ConvoPeqEngine(sr, headline.BLOCK_SIZE, device="cuda")
+    eng.load_impulse_response(str(tmp / "room.wav"))
+    eng.set_bypass(eq=True)
+    eng.set_processing_order(EQ_THEN_CONVOLVER)
+    eng.set_oversampling(1)
+    eng.set_wet_dry_mix(1.0)
+    eng.set_auto_gain(False)
+    xin = wavio.read_wav(tmp / "serve_in.wav").samples.astype(np.float32)
+    xin = np.pad(xin, [(0, 0), (0, (-n) % headline.BLOCK_SIZE)])
+    y, _ = eng.process_streaming(torch.from_numpy(xin)[None].cuda())
+    want = y[0, :, :n].float().cpu().numpy().astype(np.float64)
+    got = wavio.read_wav(tmp / "serve_out.wav").samples
+    diff = float(np.abs(got - want).max()) if got.shape == want.shape \
+        else float("inf")
+    print(f"16c cli --serve 1 x {SERVE_CLI_SECONDS:g} s (exit "
+          f"{run.returncode}, {secs:.1f} s): out.wav vs process_streaming "
+          f"max |diff| {diff:.3e}, median block wall of process_streaming "
+          f"{statistics.median(eng.last_stream_walls) * 1e3:.3f} ms [{card}]")
+    check(diff == 0.0, "16c: --serve equals process_streaming bit for bit")
+
+
+def population_rows(lrn, K, audio):
+    """The signal rows, uniforms and per-row coefficients of the learner's
+    one population call (models/learner.simulate_shaper_error_population):
+    (x (R, N), u (R, N, 2), coefficients (R, 9)) on the card, R = P x L x
+    2, and the (L, 2, N) blocks."""
+    _, sim, u = lrn._population_inputs(audio)
+    P = K.shape[0]
+    R, N = P * sim.shape[0] * sim.shape[1], sim.shape[-1]
+    xs = torch.from_numpy(sim).cuda().expand((P,) + sim.shape) \
+        .reshape(R, N).contiguous()
+    us = u.expand((P,) + u.shape).reshape(R, N, 2).contiguous()
+    k = dither.lattice_coeffs(np.broadcast_to(
+        K[:, None, None, :], (P,) + sim.shape[:-1] + (9,))).reshape(R, 9)
+    return xs, us, torch.from_numpy(np.ascontiguousarray(k)).cuda(), sim
+
+
+def population_plain(lrn, K, audio):
+    """The population's errors through the quantizer's plain version on
+    the card, on the rows of the learner's one call."""
+    xs, us, kr, sim = population_rows(lrn, K, audio)
+    scale, _ = dither.quant_scales(lrn.bit_depth)
+    q, _ = qk.error_feedback_quantize_plain(
+        xs, us, kr, scale, dither.K_OUTPUT_HEADROOM, "lattice_fir")
+    return q.reshape((K.shape[0],) + sim.shape).cpu().numpy() \
+        - sim[None] * dither.K_OUTPUT_HEADROOM
+
+
+def phase_learner(card):
+    """16d: one generation at each LEARN_POINTS point: the errors its one
+    per-row launch gave the evaluator against the plain version on the
+    card and against 18 launches of the shared form, bit for bit (the
+    costs are the evaluator's, a deterministic function of the errors, so
+    equal errors give equal costs); the generation's wall split into
+    simulation (device) and evaluator (host); the per-row kernel's time
+    at the learner's shapes beside its bounds.  Returns the generations'
+    launch counts and the time rows."""
+    counts = None
+    rows = {}
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    for sr, bits, mode, eb in LEARN_POINTS:
+        lrn = learner.NoiseShaperLearner(sr, bits, mode, seed=0, workers=4,
+                                         eval_blocks=eb, device="cuda")
+        audio = train_banks.program_material(sr)
+        cands = lrn.opt.sample()
+        K = np.stack([learner.CmaEs.to_parcor(c) for c in cands])
+        _, sim, u = lrn._population_inputs(audio)
+        learner.simulate_shaper_error_population(    # warm
+            sim, K, bits, u, device="cuda")
+        recorded = []
+        simulate = learner.simulate_shaper_error_population
+
+        def recording(*args, **kwargs):
+            errs = simulate(*args, **kwargs)
+            recorded.append(errs)
+            return errs
+
+        learner.simulate_shaper_error_population = recording
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            costs = lrn._population_costs(cands, audio)
+        finally:
+            learner.simulate_shaper_error_population = simulate
+        wall = time.perf_counter() - t0
+        launches = launches_now()
+        counts = launches if counts is None else {
+            k: counts[k] + launches[k] for k in counts}
+        check(launches["error_feedback_quantize"] == 1,
+              f"16d: one quantizer launch a generation ({launches})")
+        errs, = recorded
+        plain = population_plain(lrn, K, audio)
+        shared = np.stack([learner.simulate_shaper_error(
+            sim.reshape(-1, sim.shape[-1]), K[p], sr, bits,
+            uniforms=u.reshape(-1, sim.shape[-1], 2), device="cuda")
+            .reshape(sim.shape) for p in range(len(K))])
+        check(np.array_equal(errs, plain),
+              f"16d {sr:g}: per-row kernel errors equal the plain version's")
+        check(np.array_equal(errs, shared),
+              f"16d {sr:g}: per-row kernel errors equal 18 shared launches")
+        check(np.isfinite(costs).all() and costs.shape == (len(K),),
+              f"16d {sr:g}: one finite cost a candidate")
+        xs, us, kr, _ = population_rows(lrn, K, audio)
+        R, N = xs.shape
+        scale, _ = dither.quant_scales(bits)
+        h = dither.K_OUTPUT_HEADROOM
+        ms = time_ms(lambda: qk.error_feedback_quantize(
+            xs, us, kr, scale, h, "lattice_fir"), reps=5)
+        shared_ms = time_ms(lambda: qk.error_feedback_quantize(
+            xs, us, kr[0].cpu().numpy(), scale, h, "lattice_fir"), reps=5)
+        bytes_ms, _ = bound(R * N * 4 * 8 + 2 * R * 9 * 8 + R * 9 * 8, 0,
+                            F64_OPS_S)
+        lat_ms = N * F64_FIR_CHAIN_CYCLES / (mhz * 1e3)
+        rows[f"R{R}_N{N}"] = {"ms": ms, "shared_ms": shared_ms,
+                              "bound_bytes_ms": bytes_ms,
+                              "bound_latency_ms": lat_ms}
+        print(f"16d learner {sr:g} Hz / {bits} bits / mode {mode} / "
+              f"eval_blocks {eb}: generation {wall * 1e3:.1f} ms = "
+              f"simulation (device, one per-row launch of R={R} N={N}) "
+              f"{lrn.sim_seconds * 1e3:.1f} ms + evaluator (host, "
+              f"{len(K)} x {len(learner.TARGET_LEVELS)} scorings x "
+              f"{max(1, eb - 1)} windows on 4 threads) "
+              f"{lrn.eval_seconds * 1e3:.1f} ms; quantizer launches "
+              f"{launches['error_feedback_quantize']}; errors equal to the "
+              f"plain version and to 18 shared launches bit for bit, so "
+              f"the costs too; best cost {costs.min():.6g} [{card}]")
+        print(f"16d per-row quantizer f64 lattice_fir R={R} N={N}: "
+              f"{ms:.3f} ms (the shared form at the same shape "
+              f"{shared_ms:.3f} ms), {ms / N * 1e6:.1f} ns a step = "
+              f"{ms / N * mhz * 1e3:.0f} cycles at {mhz:.0f} MHz; bound by "
+              f"bytes {bytes_ms:.4f} ms, by the chain's latency "
+              f"({F64_FIR_CHAIN_CYCLES} cycles a step) {lat_ms:.3f} ms "
+              f"[{card}]")
+        del xs, us, errs, plain, shared
+    return counts, rows
+
+
+def phase_live_learning(card, tmp):
+    """16e: an engine at 48 kHz (the room-correction IR, EQ bypassed,
+    folded streaming), ADAPTIVE9 to 16 bits, streams with learning off,
+    then with learning on until two generations complete: a bank
+    published mid-stream; the median block wall and the xruns of both.
+    Returns the engine (16f exports it)."""
+    sr = headline.SAMPLE_RATE
+    bs = headline.BLOCK_SIZE
+    eng = engine_mod.ConvoPeqEngine(sr, bs, device="cuda",
+                                    mixed_phase_cache_dir=tmp / "mp")
+    eng.load_impulse_response(nuc3.room_ir(), sr)
+    eng.set_bypass(eq=True)
+    eng.set_dither(dither.ADAPTIVE9, 16)
+    x = staged.signal(1, LIVE_CHUNK_BLOCKS * bs / sr, "cuda", seed=10)
+    carry = None
+
+    def stream(chunks):
+        nonlocal carry
+        walls, x0 = [], eng._xrun.xruns if eng._xrun is not None else 0
+        for _ in range(chunks):
+            _, carry = eng.process_streaming(x, carry, folded=True)
+            walls += eng.last_stream_walls
+        return walls, eng._xrun.xruns - x0
+
+    stream(1)                                        # build, first launches
+    off_walls, off_xruns = stream(6)
+    reset_launches()
+    eng.start_learning(mode=0)
+    t0 = time.perf_counter()
+    on_walls, on_xruns, chunks = [], 0, 0
+    published_mid = False
+    try:
+        while eng._learner.generation < 2:
+            check(time.perf_counter() - t0 < LIVE_BOUND_S,
+                  f"16e: two generations in {LIVE_BOUND_S:g} s")
+            w, xr = stream(1)
+            on_walls += w
+            on_xruns += xr
+            chunks += 1
+            published_mid = published_mid or (
+                eng.adaptive_banks.get(sr, 16, 0) is not None)
+    finally:
+        st = eng.stop_learning(timeout=LIVE_BOUND_S)
+    secs = time.perf_counter() - t0
+    launches = launches_now()
+    events = [e for e in eng.telemetry.events if e.category == "learning"]
+    med = (statistics.median(off_walls) * 1e3,
+           statistics.median(on_walls) * 1e3)
+    print(f"16e live learning, ADAPTIVE9 16-bit, folded stream at 48 kHz: "
+          f"{st.generations} generations in {secs:.1f} s over {chunks} "
+          f"chunks of {LIVE_CHUNK_BLOCKS} blocks; bank published mid-stream "
+          f"{published_mid} ({len(events)} publications, best cost "
+          f"{st.best_score:.6g}); median block wall learning off "
+          f"{med[0]:.3f} ms ({len(off_walls)} blocks, xruns {off_xruns}), "
+          f"on {med[1]:.3f} ms ({len(on_walls)} blocks, xruns {on_xruns}), "
+          f"max on {max(on_walls) * 1e3:.3f} ms, budget "
+          f"{bs / sr * 1e3:.2f} ms; quantizer launches "
+          f"{launches['error_feedback_quantize']} (the stream's and the "
+          f"learner's) [{card}]")
+    check(published_mid and events and st.generations >= 2,
+          "16e: a bank published mid-stream")
+    return eng
+
+
+def phase_evidence(card, eng, tmp):
+    """16f: the evidence export of 16e's engine: the manifest verifies,
+    an edited artifact fails it, the payload tier names the card."""
+    d = tmp / "evidence"
+    man = eng.export_evidence_dir(d)
+    ok = evidence.verify_evidence_dir(d)
+    tier = json.loads((d / "payload_tier_report.json").read_text())
+    art = d / "learner_report.json"
+    art.write_text(art.read_text() + " ")
+    bad = evidence.verify_evidence_dir(d)
+    print(f"16f evidence: {man['artifactCount']} artifacts, verifies "
+          f"{ok['ok']}, an edited artifact fails it {not bad['ok']} "
+          f"({bad['mismatches']}); payload tier: {tier['card']}, "
+          f"{tier['device']}, launches so far "
+          f"{ {k: v for k, v in tier['kernel_launches'].items() if v} } "
+          f"[{card}]")
+    check(ok["ok"] and not bad["ok"]
+          and bad["mismatches"] == ["learner_report.json"],
+          "16f: the manifest verifies and catches an edit")
+    check(tier["card"] == card and tier["device"].startswith("cuda"),
+          "16f: the payload tier names the card")
+
+
+def phase_last_modules(card):
+    """Phase 16: the native plane, --serve, the learner, live learning,
+    the evidence export and the multi-process dry run; returns the counts
+    by path and the per-row quantizer's time rows."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    fixture = serve.serving_fixture()
+    folded = serve.build_chain("folded", "cuda", fixture)
+    by_path = {}
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        phase_native_equivalence(card, folded)
+        by_path["serve_native"] = phase_native_points(card, fixture, folded)
+        del folded
+        torch.cuda.empty_cache()
+        phase_serve_cli(card, tmp)
+        by_path["learner"], per_row = phase_learner(card)
+        eng = phase_live_learning(card, tmp)
+        phase_evidence(card, eng, tmp)
+        del eng
+    dryrun.dryrun_multichip(4, log=lambda s: print(f"16g {s} [{card}]"))
+    print(f"phase 16 (the last modules): {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    return by_path, per_row
+
+
 def main():
     card = phase_environment()
     phase_build(card)
@@ -2015,6 +2445,9 @@ def main():
     serving, serving_shapes = phase_serving(card)
     by_path.update(serving)
     by_path.update(phase_app(card))
+    last, per_row = phase_last_modules(card)
+    by_path.update(last)
+    rows["error_feedback_quantize"]["per_row_f64"] = per_row
     by_path["self_check"] = self_check
     f64 = by_path["headline_f64"]
     launches = {**by_path["prefilter"], "error_feedback_quantize":

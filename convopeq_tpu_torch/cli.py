@@ -10,12 +10,14 @@ reference's MainWindow and panels):
 State presets (--save-state / --load-state, the preset-XML analog; the
 JAX package's preset files load too), and it prints the latency
 breakdown, the auto-gain plan and, with --measure, the output's
-integrated loudness and true peak.
+integrated loudness and true peak.  --serve processes through the native
+serving plane (a producer thread -> the C++ block scheduler's rings ->
+the per-block step -> a consumer) and prints its deadline stats;
+--export-evidence DIR writes the audit artifact set and its manifest
+(runtime/evidence.py).
 
 It runs on the card (--device cuda, the default) in float32, or in
 float64 with --f64 (native on the card; --device cpu for a CPU run).
-Not offered yet: --serve (the native serving plane, ROADMAP item 4) and
---export-evidence (runtime/evidence.py, ROADMAP item 5).
 """
 from __future__ import annotations
 
@@ -42,6 +44,60 @@ def parse_eq_band(spec: str):
     q = float(parts[4])
     mode = int(parts[5]) if len(parts) > 5 else 0
     return idx, btype, freq, gain, q, mode
+
+
+def _serve_blocks(eng, x):
+    """Run (2, N) through the native serving front end: a producer thread
+    pushes blocks into the C++ scheduler's SPSC ring, the dispatcher
+    gathers, steps and commits with deadline accounting, and this thread
+    drains the processed blocks.  Prints the native stats line."""
+    import threading
+    import time
+
+    from .runtime.native_serving import NativeServingLoop
+
+    sc = eng.streaming_chain()
+    bs = sc.block_size
+    n = x.shape[-1]
+    pad = (-n) % bs
+    if pad:
+        x = np.pad(x, [(0, 0), (0, pad)])
+    nb = x.shape[-1] // bs
+    loop = NativeServingLoop(sc, 1)
+    stop = threading.Event()
+
+    def produce():
+        for k in range(nb):
+            blk = np.asarray(x[:, k * bs:(k + 1) * bs], np.float32)
+            while not loop.push(0, blk):
+                if stop.is_set():       # the consumer gave up: do not
+                    return              # spin on a full ring
+                time.sleep(1e-4)        # ring full: back off
+
+    th = threading.Thread(target=produce)
+    th.start()
+    got = []
+    deadline = time.monotonic() + 600.0
+    try:
+        while len(got) < nb and time.monotonic() < deadline:
+            if not loop.serve_window():
+                time.sleep(1e-4)
+            while True:
+                out = loop.pop(0)
+                if out is None:
+                    break
+                got.append(out)
+    finally:
+        stop.set()
+        th.join()
+    st = loop.stats()
+    print(f"serving: {st['served_blocks']} blocks of {bs}, "
+          f"xruns {st['xruns']}, underruns {st['underruns']}, "
+          f"avg {st['avg_wall_ms']:.2f} ms / budget {st['budget_ms']:.2f} "
+          f"ms, max {st['max_wall_ms']:.2f} ms")
+    if len(got) < nb:
+        raise RuntimeError(f"serving: {len(got)} of {nb} blocks came back")
+    return np.concatenate(got, axis=-1)
 
 
 def main(argv=None):
@@ -71,6 +127,15 @@ def main(argv=None):
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--f64", action="store_true",
                     help="float64 on the device (the exactness mode)")
+    ap.add_argument("--export-evidence", metavar="DIR",
+                    help="after processing, write the audit artifact set "
+                         "(evidence JSON files + sha256 manifest; the "
+                         "reference's ISREvidenceExporter analog)")
+    ap.add_argument("--serve", action="store_true",
+                    help="process through the native block-scheduler "
+                         "serving path (producer thread -> C++ rings -> "
+                         "per-block step) and print deadline stats "
+                         "(dither and auto gain are offline-only)")
     args = ap.parse_args(argv)
 
     from .engine import ConvoPeqEngine
@@ -134,7 +199,10 @@ def main(argv=None):
     if pad:
         x = np.pad(x, [(0, 0), (0, pad)])
 
-    y = eng.process(torch.from_numpy(x))[..., :n]
+    if args.serve:
+        y = torch.from_numpy(_serve_blocks(eng, x)[..., :n]).to(eng.device)
+    else:
+        y = eng.process(torch.from_numpy(x))[..., :n]
 
     lb = eng.latency_breakdown()
     print(f"latency: algorithm {lb.algorithm_latency_samples} + "
@@ -154,6 +222,11 @@ def main(argv=None):
         tp = float(true_peak(y).max())
         print(f"integrated loudness: {li:.2f} LUFS, true peak: "
               f"{20 * np.log10(max(tp, 1e-12)):.2f} dBTP")
+
+    if args.export_evidence:
+        manifest = eng.export_evidence_dir(args.export_evidence)
+        print(f"evidence: {manifest['artifactCount']} artifacts + manifest "
+              f"-> {args.export_evidence}")
 
     if args.output:
         write_wav(args.output, y.cpu().numpy(), int(sr))

@@ -70,6 +70,15 @@
 // tile and batch are masked, so the state returned is the state after
 // sample N.
 //
+// The per-row form (error_feedback_quantize_rows_*, lattice modes only):
+// every row has its own nine coefficients, (R, 9) values of T on the
+// card, which the chain lane loads into registers once before its loop
+// (ef_row_consts); nothing else differs, and the shared form's
+// instantiation (ROWS false) is the code above.  It simulates a whole
+// CMA-ES population in one launch (models/learner.py: 18 candidates x 4
+// levels x 2 channels = 144 rows), where a launch's time is set by its
+// N steps, not its rows.
+//
 // With EF_QUANTIZE_HOST_EMULATION defined only the arithmetic (the step,
 // the copy warp's xh and d, the chain warp's batched loop over one row of
 // a stage), the tiling constants and the mode dispatch are compiled, for
@@ -160,6 +169,16 @@ EF_HD T ef_clamp(T v, T lo, T hi) {
 }
 
 // The copy warp's terms: xh = x*headroom and the dither term d.
+// The constants of one row in the per-row form: k with the row's ORDER
+// coefficients (of T, as the shared form rounds its host doubles to T)
+// in place of the shared ones; zeros for a lane past the last row.
+template <typename T, int ORDER>
+EF_HD EfConsts<T> ef_row_consts(const EfConsts<T>& k, const T* c) {
+  EfConsts<T> r = k;
+  for (int i = 0; i < ORDER; ++i) r.c[i] = c ? c[i] : T(0);
+  return r;
+}
+
 template <typename T>
 EF_HD T ef_xh(T x, const EfConsts<T>& k) { return x * k.headroom; }
 
@@ -646,9 +665,13 @@ __device__ void ef_chain_warp(const EfArgs<T>& a, const EfConsts<T>& k,
 
 constexpr int kEfBarBytes = 128;  // 2 kEfStages mbarriers, padded
 
-template <typename T, int MODE, int ORDER>
+// ROWS: the per-row form (lattice modes): row r's coefficients are
+// rc[r * ORDER ..], loaded once into the chain lane's registers before its
+// loop; the copy warp needs none of them.  The shared form (ROWS false)
+// reads them from the constant bank and ignores rc.
+template <typename T, int MODE, int ORDER, bool ROWS>
 __global__ void __launch_bounds__(2 * kEfRows)
-    ef_quantize_kernel(EfArgs<T> a, EfConsts<T> k) {
+    ef_quantize_kernel(EfArgs<T> a, EfConsts<T> k, const T* rc) {
   extern __shared__ __align__(16) unsigned char ef_smem[];
   unsigned long long* const full =
       reinterpret_cast<unsigned long long*>(ef_smem);
@@ -661,18 +684,32 @@ __global__ void __launch_bounds__(2 * kEfRows)
     }
   }
   __syncthreads();  // the one block barrier: the mbarriers are set up
-  if (threadIdx.x < kEfRows)
-    ef_chain_warp<T, MODE, ORDER>(a, k, ring, full, empty);
-  else
+  if (threadIdx.x < kEfRows) {
+    if constexpr (ROWS) {
+      const int row = blockIdx.x * kEfRows + threadIdx.x;
+      const EfConsts<T> kr = ef_row_consts<T, ORDER>(
+          k, row < a.R ? rc + (size_t)row * ORDER : nullptr);
+      ef_chain_warp<T, MODE, ORDER>(a, kr, ring, full, empty);
+    } else {
+      ef_chain_warp<T, MODE, ORDER>(a, k, ring, full, empty);
+    }
+  } else
     ef_copy_warp<T, MODE>(a, k, ring, full, empty);
 }
 
+// coeffs: `order` host doubles (the shared form, row_coeffs null), or
+// row_coeffs: (R, order) values of T on the card (the per-row form, the
+// lattice modes only; coeffs unused).
 template <typename T>
 int ef_launch(const void* x, const void* u, const void* state_in, void* q,
               void* state_out, int R, int N, int mode, const double* coeffs,
-              int order, double scale, double headroom, void* stream) {
+              const void* row_coeffs, int order, double scale,
+              double headroom, void* stream) {
   if (R < 0 || N < 0 || order < 1 || order > kEfMaxOrder) return -1;
-  const EfConsts<T> k = ef_consts<T>(coeffs, order, scale, headroom);
+  const bool rows = row_coeffs != nullptr;
+  if (rows && mode != EF_LATTICE && mode != EF_LATTICE_FIR) return -1;
+  const EfConsts<T> k = rows ? ef_consts<T>(nullptr, 0, scale, headroom)
+                             : ef_consts<T>(coeffs, order, scale, headroom);
   const EfArgs<T> a{(const T*)x, (const T*)u, (const T*)state_in, (T*)q,
                     (T*)state_out, R, N};
   const size_t smem =
@@ -681,13 +718,17 @@ int ef_launch(const void* x, const void* u, const void* state_in, void* q,
     constexpr int M = decltype(m)::value;
     constexpr int O = decltype(o)::value;
     if (R == 0) return 0;
-    const cudaError_t err = cudaFuncSetAttribute(
-        ef_quantize_kernel<T, M, O>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    ef_quantize_kernel<T, M, O><<<(R + kEfRows - 1) / kEfRows, 2 * kEfRows,
-                                  smem, (cudaStream_t)stream>>>(a, k);
-    return (int)cudaGetLastError();
+    auto run = [&](auto kernel) -> int {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<(R + kEfRows - 1) / kEfRows, 2 * kEfRows, smem,
+               (cudaStream_t)stream>>>(a, k, (const T*)row_coeffs);
+      return (int)cudaGetLastError();
+    };
+    if constexpr (M == EF_LATTICE || M == EF_LATTICE_FIR)
+      if (rows) return run(ef_quantize_kernel<T, M, O, true>);
+    return run(ef_quantize_kernel<T, M, O, false>);
   });
 }
 
@@ -708,7 +749,7 @@ int error_feedback_quantize_f32(const void* x, const void* u,
                                 const double* coeffs, int order, double scale,
                                 double headroom, void* stream) {
   return ef_launch<float>(x, u, state_in, q, state_out, R, N, mode, coeffs,
-                          order, scale, headroom, stream);
+                          nullptr, order, scale, headroom, stream);
 }
 
 int error_feedback_quantize_f64(const void* x, const void* u,
@@ -717,7 +758,30 @@ int error_feedback_quantize_f64(const void* x, const void* u,
                                 const double* coeffs, int order, double scale,
                                 double headroom, void* stream) {
   return ef_launch<double>(x, u, state_in, q, state_out, R, N, mode, coeffs,
-                           order, scale, headroom, stream);
+                           nullptr, order, scale, headroom, stream);
+}
+
+// The per-row form: row_coeffs (R, order) of the library's type on the
+// card, one coefficient row a signal row; mode lattice or lattice_fir
+// (else -1).  Otherwise as above.
+int error_feedback_quantize_rows_f32(const void* x, const void* u,
+                                     const void* state_in, void* q,
+                                     void* state_out, int R, int N, int mode,
+                                     const void* row_coeffs, int order,
+                                     double scale, double headroom,
+                                     void* stream) {
+  return ef_launch<float>(x, u, state_in, q, state_out, R, N, mode, nullptr,
+                          row_coeffs, order, scale, headroom, stream);
+}
+
+int error_feedback_quantize_rows_f64(const void* x, const void* u,
+                                     const void* state_in, void* q,
+                                     void* state_out, int R, int N, int mode,
+                                     const void* row_coeffs, int order,
+                                     double scale, double headroom,
+                                     void* stream) {
+  return ef_launch<double>(x, u, state_in, q, state_out, R, N, mode, nullptr,
+                           row_coeffs, order, scale, headroom, stream);
 }
 
 }  // extern "C"

@@ -32,8 +32,12 @@ How the port differs from the JAX package:
   Generator the engine owns, seeded 0 at construction (the JAX package's
   fold_in(key, block) of one key).  The streaming state is updated in
   place (runtime/streaming.py).
-- Live learning (`start_learning`, `stop_learning`) and the evidence
-  export (`export_evidence_dir`) are not ported yet: they raise.
+- Live learning (`start_learning`, `stop_learning`): the capture ring is
+  the native SPSC ring (utils/native.py; a failed build raises, there is
+  no Python stand-in), the learner's population simulation runs on the
+  engine's device on a CUDA stream of its own, so the card runs the
+  learner's quantizer launches beside the stream's blocks, and a block's
+  fence waits on the stream's own work only.
 """
 from __future__ import annotations
 
@@ -289,6 +293,11 @@ class ConvoPeqEngine:
         self.last_stream_walls: list[float] = []
         self._stream_generator = torch.Generator(
             device=self.device).manual_seed(0)
+        self._learner = None             # live NoiseShaperLearner session
+        self._learn_ring = None
+        self._learn_thread = None
+        self._learn_stop = None
+        self._learn_gens = 1
 
     # ------------------------------------------------------------------ IR
     def load_impulse_response(self, ir, ir_sample_rate=None,
@@ -790,6 +799,7 @@ class ConvoPeqEngine:
                     fade["cf"], y_old, y, self.sample_rate)
                 if not fade["cf"].active:
                     self._fade = None
+            y_pre_dither = y
             if dithering:
                 # dither after the mix, as offline; the block's TPDF
                 # uniforms from the engine's stream generator
@@ -803,7 +813,9 @@ class ConvoPeqEngine:
                     state=dither_state, return_state=True)
                 block_ctr += 1
             if y.is_cuda:
-                torch.cuda.synchronize(y.device)
+                # this stream's work only: a live learner's launches run
+                # on a stream of their own
+                torch.cuda.current_stream(y.device).synchronize()
             dt = time.perf_counter() - t0
             self.last_stream_walls.append(dt)
             if not warmed:
@@ -815,6 +827,18 @@ class ConvoPeqEngine:
             elif self._xrun.record_step(dt):
                 self.telemetry.push("xrun", duration_us=dt * 1e6,
                                     block=int(k))
+            ring = self._learn_ring
+            if ring is not None and ring.writable >= 2 * bs:
+                # live capture for the adaptive-shaper learner: the first
+                # stream, pre-dither (the reference pushes the audio
+                # entering the shaper into its LockFreeRingBuffer,
+                # AudioEngine.Learning.cpp).  Outside the timed region,
+                # and only when the ring has room: a full ring costs no
+                # device-to-host copy
+                blk0 = y_pre_dither.reshape(
+                    (-1,) + tuple(y_pre_dither.shape[-2:]))[0]
+                ring.push(blk0.T.reshape(-1).to("cpu", torch.float64)
+                          .numpy())
             outs.append(y)
         health = self.health_monitor.tick(self._xrun.xruns, self._xrun.steps)
         self.policy.evaluate(health)
@@ -851,23 +875,94 @@ class ConvoPeqEngine:
             self.block_size = int(block_size)
             self.load_impulse_response(self._ir_raw, self.sample_rate)
 
-    def start_learning(self, *args, **kwargs):
-        """Live adaptive-shaper learning: not ported yet (ROADMAP section
-        1, item 5, the learner's learning half)."""
-        raise NotImplementedError(
-            "live learning is not ported yet (ROADMAP item 5: the "
-            "learner's learning half)")
+    def start_learning(self, mode: int | None = None,
+                       generations_per_feed: int = 1, workers: int = 2,
+                       ring_samples: int = 1 << 20):
+        """Start the live adaptive-shaper learning session
+        (AudioEngine.Learning.cpp + NoiseShaperLearner.h): blocks
+        streamed through `process_streaming` are captured pre-dither into
+        the native SPSC ring, a daemon worker runs CMA-ES generations on
+        K_FFT_LENGTH windows under the 3-phase schedule, and each improved
+        coefficient set is published into `adaptive_banks`: the ADAPTIVE9
+        dither picks it up on its next block (the RCU-handoff analog).
+        Idempotent while a session runs."""
+        from ..models.learner import NoiseShaperLearner
+        from ..utils.native import NativeRing
+        if self._learn_thread is not None:
+            return self
+        if mode is not None:
+            self.learning_mode = int(mode)
+        bits = self.dither_bit_depth if self.dither_bit_depth > 0 else 16
+        self._learn_ring = NativeRing(ring_samples)
+        self._learner = NoiseShaperLearner(
+            self.sample_rate, bits, self.learning_mode, workers=workers,
+            device=self.device)
+        self._learn_gens = max(1, int(generations_per_feed))
+        self._learn_stop = threading.Event()
+        t = threading.Thread(target=self._learning_loop,
+                             name="NoiseShaperLearning", daemon=True)
+        self._learn_thread = t
+        t.start()
+        return self
 
-    def stop_learning(self, *args, **kwargs):
-        """See `start_learning`."""
-        raise NotImplementedError(
-            "live learning is not ported yet (ROADMAP item 5: the "
-            "learner's learning half)")
+    def stop_learning(self, timeout: float = 120.0):
+        """Stop the learning worker; returns the final LearnedState (None
+        if learning never ran).  The learned banks stay published in
+        `adaptive_banks` and persist through save_state / load_state."""
+        if self._learn_thread is None:
+            return self._learner.state() if self._learner else None
+        self._learn_stop.set()
+        self._learn_thread.join(timeout=timeout)
+        if self._learn_thread.is_alive():
+            # the worker is mid-feed; keep the session registered so a
+            # new start_learning cannot attach a second consumer to the
+            # single-consumer ring: callers can retry stop_learning
+            self.telemetry.push("learning_stop_timeout",
+                                timeout_s=float(timeout))
+            return self._learner.state()
+        self._learn_thread = None
+        self._learn_ring = None
+        return self._learner.state()
 
     def _learning_loop(self):
-        raise NotImplementedError(
-            "live learning is not ported yet (ROADMAP item 5: the "
-            "learner's learning half)")
+        """The worker: drain the ring, feed K_FFT_LENGTH windows to the
+        learner, publish each finite best into `adaptive_banks`."""
+        from ..models.learner import K_FFT_LENGTH
+        stream = (torch.cuda.Stream(self.device)
+                  if self.device.type == "cuda" else None)
+        need = 2 * K_FFT_LENGTH                 # interleaved stereo
+        pending = []
+        have = 0
+        while not self._learn_stop.is_set():
+            avail = self._learn_ring.readable
+            if avail >= 2:
+                chunk = self._learn_ring.pop(avail - (avail % 2))
+                if chunk is not None:
+                    pending.append(chunk)
+                    have += chunk.size
+            if have < need:
+                time.sleep(1e-3)
+                continue
+            inter = np.concatenate(pending)
+            pending, have = [], 0
+            audio = inter.reshape(-1, 2).T       # (2, N)
+            try:
+                if stream is None:
+                    state = self._learner.feed(audio, self._learn_gens)
+                else:
+                    with torch.cuda.stream(stream):
+                        state = self._learner.feed(audio, self._learn_gens)
+            except Exception as e:
+                self.telemetry.push("learning_error", error=repr(e))
+                continue
+            if state.best_coefficients is not None and \
+                    np.isfinite(state.best_score):
+                self.adaptive_banks.store_state(
+                    state, self.sample_rate, self._learner.bit_depth,
+                    self.learning_mode)
+                self.telemetry.push(
+                    "learning", generation=state.generations,
+                    score=state.best_score, phase=self._learner.phase)
 
     def telemetry_report(self) -> dict:
         """Telemetry stats, current health and policy, xrun counters."""
@@ -883,11 +978,11 @@ class ConvoPeqEngine:
         return rep
 
     def export_evidence_dir(self, directory) -> dict:
-        """The structured audit artifact set: not ported yet (ROADMAP
-        section 1, item 5: runtime/evidence.py)."""
-        raise NotImplementedError(
-            "the evidence export is not ported yet (ROADMAP item 5: "
-            "runtime/evidence.py)")
+        """Write the structured audit artifact set (ISREvidenceExporter
+        analog: one JSON artifact a live subsystem, plus a sha256
+        manifest; see runtime/evidence.py).  Returns the manifest."""
+        from ..runtime.evidence import EvidenceExporter
+        return EvidenceExporter(self).export(directory)
 
     # ------------------------------------------------------------ state IO
     def save_state(self) -> str:

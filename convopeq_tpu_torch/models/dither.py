@@ -12,7 +12,9 @@ and their deterministic RNGs.
 
 The shapers here are the plain versions: loops over time of elementwise
 tensor ops, batched over rows, with the state in and out
-(`ops.quantize_kernels.error_feedback_quantize_plain`).  `apply_dither`
+(`ops.quantize_kernels.error_feedback_quantize_plain`), except
+`lattice_dither`, which dispatches by device as `apply_dither` does (the
+learner's population simulation runs through it).  `apply_dither`
 sends a CUDA tensor to the hand-written quantizer kernel (stateful calls
 too: the kernel takes and returns the carry) and a CPU tensor to the
 plain version.  The two are bit-identical.
@@ -294,7 +296,10 @@ def _run(quantize, x, uniforms, coeffs, bit_depth: int, headroom: float,
         out = x * headroom
         return (out, state) if return_state else out
     batch, n = x.shape[:-1], x.shape[-1]
-    order = len(coeffs)
+    coeffs = np.asarray(coeffs, np.float64)
+    order = coeffs.shape[-1]
+    if coeffs.ndim > 1:      # per-row coefficients: one row a signal row
+        coeffs = coeffs.reshape((-1, order))
     u = torch.as_tensor(uniforms).to(x.device, x.dtype).reshape((-1, n, 2))
     s = None if state is None else \
         torch.as_tensor(state).to(x.device, x.dtype).reshape((-1, order))
@@ -342,10 +347,16 @@ def lattice_dither(x, uniforms, reflection_coeffs, bit_depth: int,
     bit, including the store that makes its states drift into the +-2
     clamp; "fir" stores the previous stage's backward output (the
     textbook analysis ladder): every state is a finite response of the
-    last <= 9 clamped errors, bounded by prod(1+|k_j|) * 2 LSB."""
+    last <= 9 clamped errors, bounded by prod(1+|k_j|) * 2 LSB.
+
+    reflection_coeffs: (9,) shared, or (..., 9) with x's batch shape, one
+    coefficient set a signal row (the learner's population: the JAX
+    package's vmap over candidates).  A CUDA tensor runs the quantizer
+    kernel (its per-row form for per-row coefficients), a CPU tensor the
+    plain version."""
     if ladder not in ("reference", "fir"):
         raise ValueError(f"ladder {ladder!r}")
-    return _run(error_feedback_quantize_plain, x, uniforms,
+    return _run(error_feedback_quantize, x, uniforms,
                 lattice_coeffs(reflection_coeffs), bit_depth, headroom,
                 "lattice_fir" if ladder == "fir" else "lattice", state,
                 return_state)

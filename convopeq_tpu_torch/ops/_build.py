@@ -48,6 +48,7 @@ class Library:
 
 
 _EFQ_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _DP, _I, _D, _D, _P]
+_EFQ_ROWS_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _D, _D, _P]
 
 LIBRARIES = {
     "frame_conv": Library(
@@ -69,6 +70,8 @@ LIBRARIES = {
         NVCC_FLAGS + ("-fmad=false",), {
             "error_feedback_quantize_f32": _EFQ_ARGS,
             "error_feedback_quantize_f64": _EFQ_ARGS,
+            "error_feedback_quantize_rows_f32": _EFQ_ROWS_ARGS,
+            "error_feedback_quantize_rows_f64": _EFQ_ROWS_ARGS,
         }),
 }
 

@@ -12,13 +12,20 @@ A wrapper, a plain PyTorch version and a launch count:
   ValueError for a mode, order, type or shape the kernel does not take.
   The kernel is bit-identical to the plain version.
 - `launch_counts["error_feedback_quantize"]` grows by one at each kernel
-  launch, and nowhere else.
+  launch, and nowhere else (under a lock: the engine's live learner
+  launches from its own thread).
 
 Both take x (R, N), the uniforms u (R, N, 2) in [0, 1), the feedback
 coefficients (pre-clamped to +-0.85 for the lattice modes, as
 models/dither.py does), the quantization step `scale` = 2^-(bits-1), the
 headroom and an optional state (R, order) (zeros when None), and return
-(q (R, N), state after sample N (R, order)).  The modes and their
+(q (R, N), state after sample N (R, order)).  The coefficients are
+either shared, (order,), or one row a signal row, (R, order), for the
+lattice modes only: the per-row form simulates a whole CMA-ES population
+in one call (models/learner.py; the JAX package vmaps `lattice_dither`
+over the candidates).  The per-row coefficients are taken in x's type,
+as the shared form rounds its host doubles to x's type, so the two forms
+agree bit for bit where the rows' coefficients are equal.  The modes and their
 arithmetic are stated in the source note of the .cu file; the dither
 term is formed as the JAX wrapper forms it (pallas_kernels.py:97-100).
 
@@ -35,6 +42,7 @@ H100 80GB HBM3 at 700 W (see the source note and PERF.md).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -46,8 +54,10 @@ MODES = {"psycho": 0, "fixed": 1, "fixed15": 2, "lattice": 3,
 ORDERS = {"psycho": (12,), "fixed": (4, 16), "fixed15": (4, 16),
           "lattice": (9,), "lattice_fir": (9,)}
 STATE_LIMIT = 2.0      # lattice per-stage state clamp (LatticeNoiseShaper)
+ROW_MODES = ("lattice", "lattice_fir")   # the modes with a per-row form
 
 launch_counts = {"error_feedback_quantize": 0}
+_COUNT_LOCK = threading.Lock()     # a live learner launches from its thread
 
 
 def reset_launch_counts() -> None:
@@ -61,6 +71,22 @@ def _check_mode(mode: str, order: int) -> None:
     if order not in ORDERS[mode]:
         raise ValueError(f"mode {mode!r} takes order {ORDERS[mode]}, got "
                          f"{order}")
+
+
+def _coeff_columns(coeffs, mode, x):
+    """(order, per-row coefficients (R, order) of x's type on x's device,
+    or None for the shared form)."""
+    if getattr(coeffs, "ndim", 1) != 2:
+        return len(coeffs), None
+    if mode not in ROW_MODES:
+        raise ValueError(f"per-row coefficients are for the modes "
+                         f"{ROW_MODES}, not {mode!r}")
+    rc = torch.as_tensor(coeffs).to(x.device, x.dtype).contiguous()
+    if x.dim() != 2 or rc.shape[0] != x.shape[0]:
+        raise ValueError(f"per-row coefficients must be (R, order) with R = "
+                         f"{x.shape[0] if x.dim() else '?'} rows, got "
+                         f"{tuple(rc.shape)}")
+    return rc.shape[1], rc
 
 
 def _check_shapes(x, u, state, order):
@@ -79,9 +105,12 @@ def _check_shapes(x, u, state, order):
 def error_feedback_quantize_plain(x, u, coeffs, scale: float,
                                   headroom: float, mode: str, state=None):
     """The quantizer as a loop over time of one-op-a-launch tensor ops
-    (op for op what the kernel computes, on any device)."""
-    c = [float(v) for v in coeffs]
-    order = len(c)
+    (op for op what the kernel computes, on any device).  Shared
+    coefficients are Python floats; per-row ones (R,) columns of x's type,
+    each product still one op."""
+    order, rc = _coeff_columns(coeffs, mode, x)
+    c = [float(v) for v in coeffs] if rc is None else \
+        list(rc.T.contiguous())
     _check_mode(mode, order)
     _check_shapes(x, u, state, order)
     R, N = x.shape
@@ -138,12 +167,13 @@ def error_feedback_quantize_plain(x, u, coeffs, scale: float,
 
 def error_feedback_quantize(x, u, coeffs, scale: float, headroom: float,
                             mode: str, state=None):
-    """x (R, N), u (R, N, 2), state (R, order) or None -> (q, state)."""
+    """x (R, N), u (R, N, 2), state (R, order) or None -> (q, state).
+    coeffs: (order,) shared, or (R, order) one row a signal row (lattice
+    modes)."""
     if x.device.type == "cpu":
         return error_feedback_quantize_plain(x, u, coeffs, scale, headroom,
                                              mode, state)
-    c = [float(v) for v in coeffs]
-    order = len(c)
+    order, rc = _coeff_columns(coeffs, mode, x)
     _check_mode(mode, order)
     _check_shapes(x, u, state, order)
     if x.dtype not in (torch.float32, torch.float64):
@@ -160,16 +190,23 @@ def error_feedback_quantize(x, u, coeffs, scale: float, headroom: float,
     q = torch.empty_like(x)
     s_out = torch.empty_like(s_in)
     lib = load("error_feedback_quantize")
-    fn = (lib.error_feedback_quantize_f32 if x.dtype == torch.float32
-          else lib.error_feedback_quantize_f64)
-    carr = (ctypes.c_double * order)(*c)
+    f32 = x.dtype == torch.float32
+    if rc is None:
+        fn = (lib.error_feedback_quantize_f32 if f32
+              else lib.error_feedback_quantize_f64)
+        carg = (ctypes.c_double * order)(*[float(v) for v in coeffs])
+    else:
+        fn = (lib.error_feedback_quantize_rows_f32 if f32
+              else lib.error_feedback_quantize_rows_f64)
+        carg = rc.data_ptr()
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), u.data_ptr(), s_in.data_ptr(), q.data_ptr(),
-                s_out.data_ptr(), R, N, MODES[mode], carr, order,
-                float(scale), float(headroom),
-                torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
+        code = fn(x.data_ptr(), u.data_ptr(), s_in.data_ptr(), q.data_ptr(),
+                  s_out.data_ptr(), R, N, MODES[mode], carg, order,
+                  float(scale), float(headroom),
+                  torch.cuda.current_stream(x.device).cuda_stream)
+    if code != 0:
         raise RuntimeError(f"error_feedback_quantize: kernel launch failed "
-                           f"(code {rc})")
-    launch_counts["error_feedback_quantize"] += 1
+                           f"(code {code})")
+    with _COUNT_LOCK:
+        launch_counts["error_feedback_quantize"] += 1
     return q, s_out

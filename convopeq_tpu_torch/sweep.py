@@ -322,8 +322,11 @@ def ab_quantizer(card, other: str):
     base = _build.LIBRARIES["error_feedback_quantize"]
     source = Path(other).resolve() / "convopeq_tpu_torch" / "csrc" \
         / "error_feedback_quantize.cu"
+    # the shared form's entry points, which every tree has (the per-row
+    # ones came later)
+    shared = {k: v for k, v in base.signatures.items() if "_rows_" not in k}
     trees = {"before": replace(base, name="error_feedback_quantize_before",
-                               source=source),
+                               source=source, signatures=shared),
              "after": base}
     built = _build.build_all(trees)
     libs = {k: _build.bind(trees[k], built[k][0]) for k in trees}

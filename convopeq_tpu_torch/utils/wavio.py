@@ -1,5 +1,7 @@
-"""WAV file I/O (counterpart of convopeq_tpu/utils/wavio.py; the port's
-own host NumPy copy).
+"""WAV file I/O (counterpart of convopeq_tpu/utils/wavio.py): `read_wav`
+through the native C++ parser (utils/native.py), `read_wav_numpy`, the
+port's own copy of the JAX package's NumPy parser, as its plain version,
+and the NumPy writer.
 
 Supports PCM 16/24/32-bit and IEEE float32/float64, mono or multichannel —
 enough to read the reference's `sampledata/` fixtures (float32 and 16-bit
@@ -26,9 +28,16 @@ class WavData:
 
 def read_wav(path) -> WavData:
     """The samples of a RIFF/WAVE file as float64 (channels, frames) in
-    [-1, 1], and its rate.  The JAX package's native C++ parser belongs to
-    the native plane, which is not ported yet: this is its NumPy parser,
-    which its tests hold equal to the native one."""
+    [-1, 1], and its rate, through the native C++ parser and decoder
+    (utils/native.py, built at first use; a failed build raises).  Its
+    plain version is `read_wav_numpy`, which the tests hold it to."""
+    from .native import read_wav_native
+    samples, sr = read_wav_native(path)
+    return WavData(samples=samples, sample_rate=sr)
+
+
+def read_wav_numpy(path) -> WavData:
+    """`read_wav` in NumPy (the JAX package's parser, copied)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:4] != b"RIFF" or data[8:12] != b"WAVE":

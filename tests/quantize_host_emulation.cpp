@@ -9,7 +9,9 @@
 // tile the copy warp's terms fill a stage row of kLd values (x becomes xh
 // in place, d beside it), the chain's loop runs whole batches of kEfBatch
 // steps and then the ragged rest, and q is read back from where xh was,
-// with the state carried in registers from tile to tile.  It does not
+// with the state carried in registers from tile to tile.  The per-row
+// form (the lattice modes) takes each row's coefficients through the
+// source's ef_row_consts, as the chain lane loads them.  It does not
 // check the kernel's copies, mbarriers or warp roles, which run only on
 // the card.  Build with contraction off, as the kernel is built with
 // -fmad=false (one command):
@@ -23,17 +25,25 @@
 
 namespace {
 
+// row_coeffs: null (the shared form, coeffs) or (R, order) values of T
+// (the per-row form, lattice modes only)
 template <typename T>
 int emu_run(const T* x, const T* u, const T* state_in, T* q, T* state_out,
-            int R, int N, int mode, const double* coeffs, int order,
-            double scale, double headroom) {
+            int R, int N, int mode, const double* coeffs,
+            const T* row_coeffs, int order, double scale, double headroom) {
   using Tl = EfTile<T>;
-  const EfConsts<T> k = ef_consts<T>(coeffs, order, scale, headroom);
+  if (row_coeffs && mode != EF_LATTICE && mode != EF_LATTICE_FIR) return -1;
+  const EfConsts<T> k0 = row_coeffs
+                             ? ef_consts<T>(nullptr, 0, scale, headroom)
+                             : ef_consts<T>(coeffs, order, scale, headroom);
   return ef_dispatch(mode, order, [&](auto m, auto o) -> int {
     constexpr int M = decltype(m)::value;
     constexpr int O = decltype(o)::value;
     std::vector<T> xq(Tl::kLd), d(Tl::kLd);
     for (int r = 0; r < R; ++r) {
+      const EfConsts<T> k =
+          row_coeffs ? ef_row_consts<T, O>(k0, row_coeffs + (size_t)r * O)
+                     : k0;
       T s[O];
       for (int i = 0; i < O; ++i) s[i] = state_in[(size_t)r * O + i];
       for (int t0 = 0; t0 < N; t0 += Tl::kSteps) {
@@ -72,7 +82,7 @@ int emu_quantize_f32(const float* x, const float* u, const float* state_in,
                      const double* coeffs, int order, double scale,
                      double headroom) {
   return emu_run<float>(x, u, state_in, q, state_out, R, N, mode, coeffs,
-                        order, scale, headroom);
+                        nullptr, order, scale, headroom);
 }
 
 int emu_quantize_f64(const double* x, const double* u,
@@ -80,7 +90,24 @@ int emu_quantize_f64(const double* x, const double* u,
                      int R, int N, int mode, const double* coeffs, int order,
                      double scale, double headroom) {
   return emu_run<double>(x, u, state_in, q, state_out, R, N, mode, coeffs,
-                         order, scale, headroom);
+                         nullptr, order, scale, headroom);
+}
+
+int emu_quantize_rows_f32(const float* x, const float* u,
+                          const float* state_in, float* q, float* state_out,
+                          int R, int N, int mode, const float* row_coeffs,
+                          int order, double scale, double headroom) {
+  return emu_run<float>(x, u, state_in, q, state_out, R, N, mode, nullptr,
+                        row_coeffs, order, scale, headroom);
+}
+
+int emu_quantize_rows_f64(const double* x, const double* u,
+                          const double* state_in, double* q,
+                          double* state_out, int R, int N, int mode,
+                          const double* row_coeffs, int order, double scale,
+                          double headroom) {
+  return emu_run<double>(x, u, state_in, q, state_out, R, N, mode, nullptr,
+                         row_coeffs, order, scale, headroom);
 }
 
 }  // extern "C"

@@ -4,7 +4,7 @@ cpu --f64` the audio each CLI hands to its WAV writer agrees at <= 1e-9
 relative RMS (the JAX engine's chain is jitted, ~4e-11 from the port's),
 and the printed latency, auto-gain and loudness lines are the same.
 Also: presets across the packages, the bypass paths, `parse_eq_band`,
-and the flags not offered yet."""
+and the flags --serve and --export-evidence parse."""
 import numpy as np
 import pytest
 
@@ -122,7 +122,11 @@ def test_parse_eq_band_and_flags():
     with pytest.raises(KeyError):
         tcli.parse_eq_band("0:notch:1000:+6:1.4")
     assert tcli.main([]) == 0                     # no input: the help
-    for flag in (["--serve"], ["--export-evidence", "dir"],
-                 ["--device", "tpu"]):
-        with pytest.raises(SystemExit):
-            tcli.main(["in.wav", "out.wav"] + flag)
+    with pytest.raises(SystemExit):
+        tcli.main(["in.wav", "out.wav", "--device", "tpu"])
+    # --serve and --export-evidence parse (the JAX CLI's flags): the run
+    # then stops at the missing input file
+    for flag in (["--serve"], ["--export-evidence", "dir"]):
+        with pytest.raises(FileNotFoundError):
+            tcli.main(["missing_in.wav", "out.wav", "--device", "cpu"]
+                      + flag)

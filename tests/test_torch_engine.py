@@ -436,10 +436,13 @@ def test_unported_paths_raise_and_cuda_needs_a_card(tmp_path):
     t = te.ConvoPeqEngine(SR, 512, device="cpu",
                           mixed_phase_cache_dir=tmp_path / "t")
     assert t.dtype == torch.float32
-    for call in (t.start_learning, t.stop_learning,
-                 lambda: t.export_evidence_dir(tmp_path / "ev")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-            call()
+    # the paths once unported now run: no session yet, then a session
+    # started and stopped, and the evidence set written
+    assert t.stop_learning() is None
+    assert t.start_learning() is t and t._learn_thread is not None
+    assert t.stop_learning(timeout=30.0).generations == 0
+    assert t._learn_thread is None
+    assert t.export_evidence_dir(tmp_path / "ev")["artifactCount"] == 16
     with pytest.raises(ValueError):
         te.ConvoPeqEngine(SR, 512, dtype=torch.float16, device="cpu")
     if not torch.cuda.is_available():
