@@ -615,7 +615,7 @@ class ConvoPeqEngine:
         if fn is None:
             fn = self._chain_fn(cfg, mix_ramp is not None)
             self._chain_cache.put(trace_key, fn)
-        with StageTimer(self.telemetry, "process"):
+        with StageTimer(self.telemetry, "process", self.device):
             if self._conv_state is None:
                 y = fn(x)
             elif mix_ramp is not None:

@@ -63,6 +63,7 @@ from ..ops.partitioned_conv import partition_spectra, uniform_partitioned_conv
 from ..ops.oversample import (PRESET_IIR_LIKE, _stage_full_response,
                               make_stages, oversample_down, oversample_up)
 from ..ops.softclip import soft_clip, soft_clip_local2x, soft_clip_params
+from ..runtime.telemetry import setup_span, span
 from ..utils.dsputil import K_OUTPUT_HEADROOM, next_pow2
 from .convolver import (StereoConvolver, StereoConvolverState,
                         convolver_process, stereo_prepare)
@@ -337,16 +338,23 @@ def process_chain_fused(x, cfg: ChainConfig, conv_state: StereoConvolverState,
     state; without one, a state from `prepare_folded_convolver`, which
     bakes the prefilter into the IR.  `frame_mac` passes through to
     `uniform_partitioned_conv` ("plain" = the plain frame steps on any
-    device)."""
-    x = _sanitize_and_trim(x, cfg)
-    if prefilter is not None:
-        Hg, pg = prefilter
-        x = uniform_partitioned_conv(x, Hg, pg, frame_mac)
-    y = convolver_process(x, conv_state, 1.0, frame_mac)
-    post = cfg.output_makeup_gain * (K_OUTPUT_HEADROOM
-                                     if cfg.apply_output_headroom else 1.0)
-    if post != 1.0:
-        y = y * post
+    device).  Spans (`runtime.telemetry.span`): "chain" around
+    "chain.sanitize", "chain.conv" and "chain.post"."""
+    dev = x.device
+    with span("chain", dev):
+        with span("chain.sanitize", dev):
+            x = _sanitize_and_trim(x, cfg)
+        if prefilter is not None:
+            Hg, pg = prefilter
+            x = uniform_partitioned_conv(x, Hg, pg, frame_mac)
+        with span("chain.conv", dev):
+            y = convolver_process(x, conv_state, 1.0, frame_mac)
+        post = cfg.output_makeup_gain * (K_OUTPUT_HEADROOM
+                                         if cfg.apply_output_headroom
+                                         else 1.0)
+        if post != 1.0:
+            with span("chain.post", dev):
+                y = y * post
     return y
 
 
@@ -363,6 +371,7 @@ def throughput_partition_size(ir_len: int, f64: bool = False) -> int:
     return min(p, MAX_PART if f64 else 32768)
 
 
+@setup_span("setup.fold")
 def prepare_folded_convolver(ir, block_size: int, spec, cfg: ChainConfig,
                              eq_params: EQParams | None, eps: float = 1e-10,
                              dtype=torch.float32, partition="auto",
@@ -653,6 +662,7 @@ class PrefilterChain(nn.Module):
             (self.prefilter_spectra, self.prefilter_part), frame_mac)
 
 
+@setup_span("setup.fold")
 def prepare_semi_folded_convolver(ir, block_size: int, spec, cfg: ChainConfig,
                                   eq_params: EQParams | None,
                                   eps: float = 1e-10, dtype=torch.float32,
@@ -682,19 +692,29 @@ def process_chain_semi_fused(x, cfg: ChainConfig,
     pre-gains -> folded NUC (dc_in + EQ + conv + output filter) -> makeup
     -> local 2x soft clip -> output DC blocker -> headroom, the staged
     chain's order (the soft clip and the output DC blocker do not commute
-    with the fold).  `frame_mac` passes through to the convolution."""
+    with the fold).  `frame_mac` passes through to the convolution.
+    Spans: "chain" around "chain.sanitize", "chain.conv", "chain.post"
+    (each scalar gain), "chain.soft_clip" and "chain.dc_block"."""
     if resolve_oversampling_factor(cfg.oversampling_factor,
                                    cfg.sample_rate) > 1:
         raise ValueError("semi-fused chain is single-rate (oversampled "
                          "soft-clip configs run staged)")
-    x = _sanitize_and_trim(x, cfg)
-    y = convolver_process(x, conv_state, 1.0, frame_mac)
-    if cfg.output_makeup_gain != 1.0:
-        y = y * cfg.output_makeup_gain
-    y = soft_clip_local2x(y, *soft_clip_params(cfg.saturation_amount))
-    y, _ = dc_block(y, cfg.sample_rate, 3.0)
-    if cfg.apply_output_headroom:
-        y = y * K_OUTPUT_HEADROOM
+    dev = x.device
+    with span("chain", dev):
+        with span("chain.sanitize", dev):
+            x = _sanitize_and_trim(x, cfg)
+        with span("chain.conv", dev):
+            y = convolver_process(x, conv_state, 1.0, frame_mac)
+        if cfg.output_makeup_gain != 1.0:
+            with span("chain.post", dev):
+                y = y * cfg.output_makeup_gain
+        with span("chain.soft_clip", dev):
+            y = soft_clip_local2x(y, *soft_clip_params(cfg.saturation_amount))
+        with span("chain.dc_block", dev):
+            y, _ = dc_block(y, cfg.sample_rate, 3.0)
+        if cfg.apply_output_headroom:
+            with span("chain.post", dev):
+                y = y * K_OUTPUT_HEADROOM
     return y
 
 

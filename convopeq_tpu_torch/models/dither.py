@@ -38,6 +38,7 @@ import torch
 from ..device import resolve_device
 from ..ops.quantize_kernels import (error_feedback_quantize,
                                     error_feedback_quantize_plain)
+from ..runtime.telemetry import span
 from ..utils.dsputil import K_OUTPUT_HEADROOM
 
 # Noise shaper types (AudioEngine NoiseShaperType)
@@ -304,8 +305,9 @@ def _run(quantize, x, uniforms, coeffs, bit_depth: int, headroom: float,
     s = None if state is None else \
         torch.as_tensor(state).to(x.device, x.dtype).reshape((-1, order))
     scale, _ = quant_scales(bit_depth)
-    q, s_out = quantize(x.reshape((-1, n)), u, coeffs, scale, headroom,
-                        mode, s)
+    with span("dither.quantize", x.device):
+        q, s_out = quantize(x.reshape((-1, n)), u, coeffs, scale, headroom,
+                            mode, s)
     q = q.reshape(x.shape)
     return (q, s_out.reshape(batch + (order,))) if return_state else q
 
@@ -401,15 +403,17 @@ def apply_dither(x, shaper_type: int, sample_rate: float, bit_depth: int,
     uniforms: (..., N, 2) in [0, 1); drawn from `generator` on x's device
     when omitted.  bit_depth <= 0 disables quantization (headroom only).
     A CUDA tensor runs the quantizer kernel, a CPU tensor its plain
-    version; both take and return the shaper carry (state (..., order))."""
+    version; both take and return the shaper carry (state (..., order)).
+    Spans: "dither" around "dither.quantize"."""
     x = torch.as_tensor(x)
-    if bit_depth <= 0:
-        out = x * headroom
-        return (out, state) if return_state else out
-    coeffs, mode = shaper_mode(shaper_type, sample_rate, bit_depth,
-                               adaptive_coeffs, lattice_ladder)
-    if uniforms is None:
-        uniforms = torch.rand(x.shape + (2,), generator=generator,
-                              dtype=x.dtype, device=x.device)
-    return _run(error_feedback_quantize, x, uniforms, coeffs, bit_depth,
-                headroom, mode, state, return_state)
+    with span("dither", x.device):
+        if bit_depth <= 0:
+            out = x * headroom
+            return (out, state) if return_state else out
+        coeffs, mode = shaper_mode(shaper_type, sample_rate, bit_depth,
+                                   adaptive_coeffs, lattice_ladder)
+        if uniforms is None:
+            uniforms = torch.rand(x.shape + (2,), generator=generator,
+                                  dtype=x.dtype, device=x.device)
+        return _run(error_feedback_quantize, x, uniforms, coeffs,
+                    bit_depth, headroom, mode, state, return_state)

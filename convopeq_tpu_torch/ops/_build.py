@@ -27,6 +27,8 @@ import sys
 from dataclasses import dataclass
 from pathlib import Path
 
+from ..runtime.telemetry import setup_span
+
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -151,10 +153,12 @@ def bind(lib: Library, path: Path) -> ctypes.CDLL:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The bound library `name`, built on first call."""
+    """The bound library `name`, built on first call: the first call's
+    build and bind is the set-up span "setup.build"."""
     lib = _loaded.get(name)
     if lib is None:
-        path, _ = build(name)
-        lib = bind(LIBRARIES[name], path)
+        with setup_span("setup.build"):
+            path, _ = build(name)
+            lib = bind(LIBRARIES[name], path)
         _loaded[name] = lib
     return lib

@@ -1,3 +1,4 @@
 """The serving runtime (counterpart of convopeq_tpu/runtime/): the
-streaming step, the crossfade plane and telemetry."""
-from . import crossfade, streaming, telemetry  # noqa: F401
+streaming step, the crossfade plane and telemetry.  The submodules are
+imported by name: the models and ops import `telemetry`'s spans, and
+`streaming` imports the models."""

@@ -84,6 +84,7 @@ from ..ops.scan_iir import (POLE_RADIUS_DIAG_F32, _biquad_pole_radius,
 from ..ops.softclip import soft_clip, soft_clip_params
 from ..ops.svf import svf_coeffs, svf_process
 from ..utils.dsputil import K_OUTPUT_HEADROOM, equal_power_sin
+from .telemetry import NO_SPAN, setup_span, span, tracing
 
 
 # ---------------------------------------------------------------- ring ops
@@ -233,16 +234,24 @@ def _inverse(Y):
 
 
 def _layer_step(ls: StreamLayerState, sig, RR, H0, lp, block_size: int,
-                rdt):
+                rdt, names, dev):
     """Advance one layer by one block `sig` (..., 2, block) in place and
-    return its output (..., 2, block), the layer's gain applied."""
+    return its output (..., 2, block), the layer's gain applied.  names:
+    None, or while the profiler records the layer's (MAC, fire) span
+    names, its work on `dev`; each MAC span counts the partitions it
+    sums and their bins."""
     p, P = lp.part_size, lp.num_parts
+    mac, fire = names or (None, None)
     if _is_immediate(lp, block_size):
         # processLayerBlock: the block is the frame
-        X = _forward(ls.prev, sig)
-        w = ls.step % P
-        _fdl_write(ls.fdl, X, w)
-        y = _inverse(_ring_mac(ls.fdl, RR, w, 0, P, rdt))
+        with span(fire, dev) if names else NO_SPAN:
+            X = _forward(ls.prev, sig)
+            w = ls.step % P
+            _fdl_write(ls.fdl, X, w)
+            with span(mac, dev, partitions=P, bins=p + 1) if names \
+                    else NO_SPAN:
+                Y = _ring_mac(ls.fdl, RR, w, 0, P, rdt)
+            y = _inverse(Y)
         ls.prev = sig
         ls.step += 1
         return y if lp.gain == 1.0 else lp.gain * y
@@ -258,15 +267,21 @@ def _layer_step(ls: StreamLayerState, sig, RR, H0, lp, block_size: int,
     j0 = 1 + slot * ppc
     j1 = min(j0 + ppc, P)
     if j0 < j1:
-        ls.par += _ring_mac(ls.fdl, RR, k % P, j0, j1, rdt)
+        with span(mac, dev, partitions=j1 - j0, bins=p + 1) if names \
+                else NO_SPAN:
+            ls.par += _ring_mac(ls.fdl, RR, k % P, j0, j1, rdt)
     if slot == ratio - 1:
         # fire: frame k holds local samples [k p, (k+1) p); its output
         # lands at stream position k p + offset
-        X = _forward(ls.prev, ls.acc)
-        _fdl_write(ls.fdl, X, k % P)
-        y = _inverse(ls.par + X * H0)
-        _ring_write(ls.ring, y, (k * p + lp.offset) % ls.ring.shape[-1])
-        ls.par.zero_()
+        with span(fire, dev) if names else NO_SPAN:
+            X = _forward(ls.prev, ls.acc)
+            _fdl_write(ls.fdl, X, k % P)
+            with span(mac, dev, partitions=1, bins=p + 1) if names \
+                    else NO_SPAN:
+                Y = ls.par + X * H0
+            y = _inverse(Y)
+            _ring_write(ls.ring, y, (k * p + lp.offset) % ls.ring.shape[-1])
+            ls.par.zero_()
         ls.prev, ls.acc = ls.acc, ls.prev
     out = _ring_read(ls.ring, (ls.step * block_size) % ls.ring.shape[-1],
                      block_size)
@@ -409,6 +424,7 @@ class StreamingChain:
             self._sc_stage = design_halfband(31, 90.0)
             self._sc_hists = _stage_hist_sizes(self._sc_stage)
         self._layers = ()
+        self._span_names = ()
         self._direct_w = None
         if self.left is not None:
             if self.left.plan != self.right.plan:
@@ -424,6 +440,10 @@ class StreamingChain:
                 layers.append((lp, _ring_spectra(H),
                                H[:, 0, :].contiguous()))
             self._layers = tuple(layers)
+            self._span_names = tuple(
+                (f"nuc.L{lp.part_size}", (f"nuc.L{lp.part_size}.mac",
+                                          f"nuc.L{lp.part_size}.fire"))
+                for lp, _, _ in layers)
             if self.left.plan.direct_taps > 0:
                 taps = torch.stack([self.left.direct_ir,
                                     self.right.direct_ir])
@@ -433,6 +453,7 @@ class StreamingChain:
 
     # ----------------------------------------------------- folded build
     @classmethod
+    @setup_span("setup.fold")
     def folded_from_ir(cls, cfg: ChainConfig, eq_params: EQParams | None, ir,
                        spec, block_size: int = 512, dtype=torch.float32,
                        fdl_dtype=None, eps: float = 1e-10,
@@ -632,12 +653,16 @@ class StreamingChain:
                                   state0=st.agc, return_state=True)
         return x
 
-    def _run_conv(self, x, st: StreamState):
+    def _run_conv(self, x, st: StreamState, on: bool):
         wet = None
-        for ls, (lp, RR, H0) in zip(st.conv_layers, self._layers):
-            y = _layer_step(ls, x, RR, H0, lp, self._internal_block,
-                            self.dtype)
-            wet = y if wet is None else wet + y
+        dev = self.device
+        with span("step.conv", dev) if on else NO_SPAN:
+            for ls, (lp, RR, H0), (name, names) in zip(
+                    st.conv_layers, self._layers, self._span_names):
+                with span(name, dev) if on else NO_SPAN:
+                    y = _layer_step(ls, x, RR, H0, lp, self._internal_block,
+                                    self.dtype, names if on else None, dev)
+                wet = y if wet is None else wet + y
         if self._direct_w is not None:
             k = self._direct_w.shape[-1]
             n = x.shape[-1]
@@ -705,41 +730,53 @@ class StreamingChain:
     def step(self, state: StreamState, block):
         """Advance by one block: block (..., 2, block_size).  The state is
         updated in place and returned with the output (..., 2,
-        block_size)."""
-        cfg = self.cfg
-        x = _sanitize(block.to(self.device, self.dtype))
-        if cfg.input_headroom_gain != 1.0:
-            x = x * cfg.input_headroom_gain
-        if not self._folded:
-            x, state.dc_in = self._dc(x, self._dc_a, state.dc_in)
-        if self.os_factor > 1:
-            x = self._os_up(x, state)
-            x, state.dc_os = self._dc(x, self._dc_os_a, state.dc_os)
-        if cfg.order == CONVOLVER_THEN_EQ:
-            if self._conv_active:
-                x = self._run_conv(x, state)
-            if self._eq_active:
-                x = self._run_eq(x, state)
-        else:
-            if self._eq_active:
-                x = self._run_eq(x, state)
-            if self._conv_active:
-                if abs(cfg.convolver_input_trim_gain - 1.0) > 1e-12:
-                    x = x * cfg.convolver_input_trim_gain
-                x = self._run_conv(x, state)
-        if (self._conv_active or self._eq_active) and not self._folded:
-            x = self._run_output_filter(x, state)
-        if cfg.output_makeup_gain != 1.0:
-            x = x * cfg.output_makeup_gain
-        if cfg.soft_clip_enabled:
-            x = self._soft_clip(x, state)
-        if self.os_factor > 1:
-            x = self._os_down(x, state)
-        if not self._folded:
-            x, state.dc_out = self._dc(x, self._dc_a, state.dc_out)
-        if cfg.apply_output_headroom:
-            x = x * K_OUTPUT_HEADROOM
-        state.step += 1
+        block_size).
+
+        Its spans (`runtime.telemetry.span`, recorded only under a
+        profiler): "step" (counts: streams, step) around "step.in",
+        "step.conv" (one "nuc.L<p>" a layer, each with its "nuc.L<p>.mac"
+        ranges and, on a fire block, "nuc.L<p>.fire") and "step.out"."""
+        cfg, dev = self.cfg, self.device
+        on = tracing()
+        with span("step", dev, streams=block.shape[:-2].numel(),
+                  step=state.step) if on else NO_SPAN:
+            with span("step.in", dev) if on else NO_SPAN:
+                x = _sanitize(block.to(self.device, self.dtype))
+                if cfg.input_headroom_gain != 1.0:
+                    x = x * cfg.input_headroom_gain
+                if not self._folded:
+                    x, state.dc_in = self._dc(x, self._dc_a, state.dc_in)
+                if self.os_factor > 1:
+                    x = self._os_up(x, state)
+                    x, state.dc_os = self._dc(x, self._dc_os_a,
+                                              state.dc_os)
+            if cfg.order == CONVOLVER_THEN_EQ:
+                if self._conv_active:
+                    x = self._run_conv(x, state, on)
+                if self._eq_active:
+                    x = self._run_eq(x, state)
+            else:
+                if self._eq_active:
+                    x = self._run_eq(x, state)
+                if self._conv_active:
+                    if abs(cfg.convolver_input_trim_gain - 1.0) > 1e-12:
+                        x = x * cfg.convolver_input_trim_gain
+                    x = self._run_conv(x, state, on)
+            with span("step.out", dev) if on else NO_SPAN:
+                if (self._conv_active or self._eq_active) and \
+                        not self._folded:
+                    x = self._run_output_filter(x, state)
+                if cfg.output_makeup_gain != 1.0:
+                    x = x * cfg.output_makeup_gain
+                if cfg.soft_clip_enabled:
+                    x = self._soft_clip(x, state)
+                if self.os_factor > 1:
+                    x = self._os_down(x, state)
+                if not self._folded:
+                    x, state.dc_out = self._dc(x, self._dc_a, state.dc_out)
+                if cfg.apply_output_headroom:
+                    x = x * K_OUTPUT_HEADROOM
+            state.step += 1
         return state, x
 
     def multi_step(self, state: StreamState, blocks):

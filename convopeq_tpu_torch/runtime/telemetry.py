@@ -5,8 +5,8 @@ port's own copy).
 Rebuild of the reference's observability plane:
 - DiagEvent records and their ring drain (src/LockFreeRingBuffer.h
   DiagEvent 512, AudioEngine.Timer.cpp:155-201): here a bounded
-  in-process event log with per-stage microsecond timings and budget
-  permille.
+  in-process event log with per-stage microsecond timings: the host's
+  and, resolved when read, the stream's.
 - Xrun detection: a step, or the gap since the previous one, longer than
   1.5 x the block period (ARCHITECTURE.md:397) is a deadline miss of the
   streaming runtime (`XrunDetector`).
@@ -15,19 +15,31 @@ Rebuild of the reference's observability plane:
 - RuntimePolicyEngine (src/audioengine/RuntimePolicyEngine.h:50-53): the
   6-level recovery ladder Observe -> Throttle -> Recover -> Restore ->
   Safe -> Critical.
-- Evidence export: a JSON dump of the telemetry state (the
-  ISREvidenceExporter analog).
+- Spans: named regions of the program (`span`), recorded only while a
+  `torch.profiler` session records.  Each is a `record_function` range
+  in the profiler's trace, so it shares the clock of the device's
+  events there, and a record in a bounded in-memory store (`spans()`)
+  with its host time, its stream time (on a CUDA device a pair of CUDA
+  events, resolved when read: the trace links no kernel to the range
+  that launched it) and the counts its caller gives.  With no session
+  a span is the shared no-op context `NO_SPAN`.
+- Set-up spans (`setup_span`): host seconds of the few one-off steps of
+  a (re)build (the fold, the CUDA libraries' load), always recorded, in
+  a small dict beside the store (`setup_seconds()`).
 
 Host side: the device computation carries no telemetry; these wrap the
 calls that drive it.
 """
 from __future__ import annotations
 
-import json
+import contextlib
 import time
 from collections import deque
-from dataclasses import dataclass, field, asdict
+from dataclasses import dataclass, field
 from enum import IntEnum
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 XRUN_FACTOR = 1.5                   # ARCHITECTURE.md:397
 
@@ -48,6 +60,64 @@ class PolicyLevel(IntEnum):
     CRITICAL = 5
 
 
+class _EventPool:
+    """Timing CUDA events for reuse: a span or a stage takes two and
+    gives them back once its stream time is read."""
+
+    def __init__(self):
+        self._free: list = []
+
+    def take(self):
+        try:
+            return self._free.pop()
+        except IndexError:
+            return torch.cuda.Event(enable_timing=True)
+
+    def give(self, *events):
+        self._free.extend(events)
+
+
+_EVENTS = _EventPool()
+
+
+class _StreamTimer:
+    """Stream time of a region whose work runs on `device`: on a CUDA
+    device a pair of CUDA events on its current stream, from when the
+    stream reached the region's first operation to when it finished its
+    last, resolved when `ms` is read (never on the hot path); on any
+    other device the work is synchronous, so the region's host time
+    stands for it."""
+
+    __slots__ = ("_e0", "_e1", "_ms", "_stream")
+
+    def __init__(self, device):
+        self._e0 = self._e1 = self._ms = None
+        if device is not None and torch.device(device).type == "cuda":
+            self._stream = torch.cuda.current_stream(device)
+            self._e0 = _EVENTS.take()
+            self._e0.record(self._stream)
+
+    def stop(self, host_ms: float):
+        if self._e0 is None:
+            self._ms = host_ms
+        else:
+            self._e1 = _EVENTS.take()
+            self._e1.record(self._stream)
+
+    def done(self) -> bool:
+        """Whether `ms` can be read without waiting."""
+        return self._ms is not None or self._e1.query()
+
+    @property
+    def ms(self) -> float:
+        if self._ms is None:
+            self._e1.synchronize()
+            self._ms = self._e0.elapsed_time(self._e1)
+            _EVENTS.give(self._e0, self._e1)
+            self._e0 = self._e1 = None
+        return self._ms
+
+
 @dataclass
 class DiagEvent:
     """RT-safe diagnostic record (DiagEvent analog)."""
@@ -55,21 +125,25 @@ class DiagEvent:
     seq: int
     t_monotonic: float
     duration_us: float = 0.0
-    budget_permille: int = 0
     detail: dict = field(default_factory=dict)
 
 
 class TelemetryRecorder:
-    """Bounded event log + per-stage timing stats (TelemetryRecorder.h)."""
+    """Bounded event log + per-stage timing stats (TelemetryRecorder.h).
+
+    `stage_stats` holds, a category, the count, total and largest host
+    microseconds of its events and, for the stages a `StageTimer` timed,
+    the count, total and largest stream microseconds, resolved when
+    `stage_stats` is read."""
 
     def __init__(self, capacity: int = 512):
         self.events: deque = deque(maxlen=capacity)
         self.dropped = 0
         self.seq = 0
-        self.stage_stats: dict = {}
+        self._stats: dict = {}
+        self._pending: deque = deque()     # (category, _StreamTimer)
 
-    def push(self, category: str, duration_us: float = 0.0,
-             budget_permille: int = 0, **detail):
+    def push(self, category: str, duration_us: float = 0.0, **detail):
         self.seq += 1
         if self.events.maxlen is not None and \
                 len(self.events) == self.events.maxlen:
@@ -77,48 +151,191 @@ class TelemetryRecorder:
         self.events.append(DiagEvent(category=category, seq=self.seq,
                                      t_monotonic=time.monotonic(),
                                      duration_us=duration_us,
-                                     budget_permille=budget_permille,
                                      detail=detail))
-        st = self.stage_stats.setdefault(
+        st = self._stats.setdefault(
             category, {"count": 0, "total_us": 0.0, "max_us": 0.0})
         st["count"] += 1
         st["total_us"] += duration_us
         st["max_us"] = max(st["max_us"], duration_us)
+
+    def push_stream(self, category: str, timer: _StreamTimer):
+        """Queue a stage's stream time; those already finished are folded
+        into the stats now, the rest when `stage_stats` is read."""
+        self._pending.append((category, timer))
+        self._resolve(wait=False)
+
+    def _resolve(self, wait: bool):
+        while self._pending and (wait or self._pending[0][1].done()):
+            category, timer = self._pending.popleft()
+            us = timer.ms * 1e3
+            st = self._stats[category]
+            st["stream_count"] = st.get("stream_count", 0) + 1
+            st["stream_total_us"] = st.get("stream_total_us", 0.0) + us
+            st["stream_max_us"] = max(st.get("stream_max_us", 0.0), us)
+
+    @property
+    def stage_stats(self) -> dict:
+        self._resolve(wait=True)
+        return self._stats
 
     def drain(self):
         out = list(self.events)
         self.events.clear()
         return out
 
-    def export_evidence(self) -> str:
-        """ISREvidenceExporter analog: JSON audit dump."""
-        return json.dumps({
-            "seq": self.seq,
-            "dropped": self.dropped,
-            "stage_stats": self.stage_stats,
-            "recent": [asdict(e) for e in list(self.events)[-32:]],
-        }, indent=2)
-
 
 class StageTimer:
-    """Context manager recording a stage's wall time against a budget."""
+    """Context manager recording a stage's host time (what the host spent
+    enqueueing it) as an event of `category`, and its stream time: on a
+    CUDA `device` (the device the stage's work runs on) from a pair of
+    CUDA events, resolved when the recorder's `stage_stats` is read, no
+    synchronize; with no device, or another, the host time."""
 
     def __init__(self, recorder: TelemetryRecorder, category: str,
-                 budget_us: float | None = None):
+                 device=None):
         self.recorder = recorder
         self.category = category
-        self.budget_us = budget_us
+        self.device = device
 
     def __enter__(self):
+        self._stream = _StreamTimer(self.device)
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         us = (time.perf_counter() - self.t0) * 1e6
-        permille = int(us / self.budget_us * 1000) if self.budget_us else 0
-        self.recorder.push(self.category, duration_us=us,
-                           budget_permille=permille)
+        self._stream.stop(us / 1e3)
+        self.recorder.push(self.category, duration_us=us)
+        self.recorder.push_stream(self.category, self._stream)
         return False
+
+
+# ------------------------------------------------------------------ spans
+
+SPAN_CAPACITY = 1 << 14
+
+
+class Span:
+    """One span, its context and, once closed, its record: the name, the
+    counts its caller gave, its host interval on the system clock (ns,
+    the clock under the profiler's trace) and its stream time on the
+    device its work runs on."""
+
+    __slots__ = ("name", "counts", "t0_ns", "t1_ns", "_device", "_range",
+                 "_stream")
+
+    def __init__(self, name: str, device, counts: dict):
+        self.name, self._device, self.counts = name, device, counts
+        self.t1_ns = None
+
+    def __enter__(self):
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        SPANS.add(self)
+        self._stream = _StreamTimer(self._device)
+        self.t0_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1_ns = time.time_ns()
+        self._stream.stop(self.host_ms)
+        self._range.__exit__(*exc)
+        return False
+
+    @property
+    def host_ms(self) -> float:
+        return (self.t1_ns - self.t0_ns) / 1e6
+
+    @property
+    def stream_ms(self) -> float:
+        return self._stream.ms
+
+
+class SpanStore:
+    """The bounded store of spans, in the order they opened; `dropped`
+    counts the spans it evicted."""
+
+    def __init__(self):
+        self.records: deque = deque(maxlen=SPAN_CAPACITY)
+        self.dropped = 0
+
+    def add(self, rec: Span):
+        if len(self.records) == self.records.maxlen:
+            self.dropped += 1
+        self.records.append(rec)
+
+    def resolved(self) -> list:
+        """The closed spans in order, each stream time resolved."""
+        out = [r for r in list(self.records) if r.t1_ns is not None]
+        for r in out:
+            r.stream_ms
+        return out
+
+
+SPANS = SpanStore()
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+def tracing() -> bool:
+    """Whether a profiler session records, so that spans are kept."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str, device, **counts):
+    """A named region of the program whose work runs on `device`, with
+    `counts` (ints) for its readers.  With no profiler session the shared
+    no-op context `NO_SPAN`; with one, a `record_function` range in the
+    trace and a record in the store (`spans`).  A hot path tests
+    `tracing()` once and writes `span(...) if on else NO_SPAN`."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return NO_SPAN
+    return Span(name, device, counts)
+
+
+def spans() -> list:
+    """The store's closed spans in order, stream times resolved."""
+    return SPANS.resolved()
+
+
+_SETUP: dict = {}
+_SETUP_OPEN: dict = {}
+
+
+@contextlib.contextmanager
+def setup_span(name: str):
+    """A one-off set-up step, always timed on the host: its seconds add
+    to `setup_seconds()[name]`.  A span inside another of the same name
+    (one fold that calls another) adds nothing of its own.  Usable as a
+    decorator."""
+    depth = _SETUP_OPEN.get(name, 0)
+    _SETUP_OPEN[name] = depth + 1
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _SETUP_OPEN[name] = depth
+        if depth == 0:
+            ent = _SETUP.setdefault(name, {"seconds": 0.0, "calls": 0})
+            ent["seconds"] += time.perf_counter() - t0
+            ent["calls"] += 1
+
+
+def setup_seconds() -> dict:
+    """{name: {"seconds": host seconds, "calls": n}} of the process's
+    set-up spans."""
+    return {k: dict(v) for k, v in _SETUP.items()}
 
 
 class XrunDetector:

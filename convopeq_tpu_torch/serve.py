@@ -178,16 +178,20 @@ def profile_window(chain, state, blocks, steps: int):
     by torch.profiler, the device alone (the host's thousands of
     operator events a staged step would cost minutes to aggregate): every
     device event (kernels, copies, fills) and their device time over the
-    window's wall."""
+    wall of as many steps run untraced just before (under the profiler
+    the step's spans slow the host, not the device)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(steps):
+        state, _ = chain.step(state, blocks[k % len(blocks)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for k in range(steps):
             state, _ = chain.step(state, blocks[k % len(blocks)])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     ev = [e for e in prof.key_averages()
           if e.device_type == DeviceType.CUDA]
     ops = sum(e.count for e in ev)

@@ -13,6 +13,7 @@ import importlib.util
 import json
 import os
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,12 +21,14 @@ import pytest
 import torch
 
 from convopeq_tpu.runtime import crossfade as j_xf
+from convopeq_tpu.runtime import evidence as j_ev
 from convopeq_tpu.runtime import telemetry as j_tel
 from convopeq_tpu_torch import serve
 from convopeq_tpu_torch.models import chain as t_chain
 from convopeq_tpu_torch.models import convolver as t_conv
 from convopeq_tpu_torch.models import nuc as t_nuc
 from convopeq_tpu_torch.runtime import crossfade as t_xf
+from convopeq_tpu_torch.runtime import evidence as t_ev
 from convopeq_tpu_torch.runtime import telemetry as t_tel
 from convopeq_tpu_torch.runtime.streaming import StreamingChain
 
@@ -139,35 +142,66 @@ def _on_clock(monkeypatch):
 
 @pytest.mark.parametrize("capacity", [4, 8, 64])
 def test_recorder_stage_timer_and_drops(monkeypatch, capacity):
+    """The same events through both recorders, read back through each
+    package's `runtime_budget_report`.  The port's DiagEvent has no
+    budget field (nothing set one) and its StageTimer adds the stage's
+    stream time, which for work on the CPU is the host time."""
     clock = _on_clock(monkeypatch)
 
-    def drive(mod):
+    def drive(mod, ev_mod):
+        def stage(rec, cat):
+            return (mod.StageTimer(rec, cat, device="cpu") if mod is t_tel
+                    else mod.StageTimer(rec, cat))
         clock.t = 100.0
         rec = mod.TelemetryRecorder(capacity=capacity)
         out = []
         for k in range(20):
             clock.t += 0.001 * (k + 1)
             if k % 5 == 0:
-                with mod.StageTimer(rec, "eq", budget_us=1e3 * (k + 1)):
+                with stage(rec, "eq"):
                     clock.t += 0.0007 * (k + 1)
             elif k % 5 == 1:
-                with mod.StageTimer(rec, "conv"):
+                with stage(rec, "conv"):
                     clock.t += 0.0002
             else:
                 rec.push("tick" if k % 2 else "conv",
-                         duration_us=12.5 * k, budget_permille=k, block=k)
+                         duration_us=12.5 * k, block=k)
             out.append((rec.seq, rec.dropped, len(rec.events)))
             if k == 13:
-                out.append([dataclasses.asdict(e) for e in rec.drain()])
-        evidence = json.loads(rec.export_evidence())
-        return out, rec.stage_stats, evidence, [
-            dataclasses.asdict(e) for e in rec.drain()]
+                out.append([_event(e) for e in rec.drain()])
+        report = ev_mod.EvidenceExporter(
+            SimpleNamespace(telemetry=rec)).runtime_budget_report()
+        return out, report, [_event(e) for e in rec.drain()]
 
-    got, want = drive(t_tel), drive(j_tel)
-    assert got == want
-    _, stats, evidence, _ = got
-    assert evidence["seq"] == 20 and set(stats) == {"eq", "conv", "tick"}
-    assert evidence["dropped"] == max(0, 14 - capacity) + max(0, 6 - capacity)
+    got, want = drive(t_tel, t_ev), drive(j_tel, j_ev)
+    assert got[0] == want[0] and got[2] == want[2]
+    report, want_report = got[1], want[1]
+    assert {k: v for k, v in report.items() if k != "stages"} == \
+        {k: v for k, v in want_report.items() if k != "stages"}
+    stages = report["stages"]
+    assert set(stages) == set(want_report["stages"]) == {"eq", "conv",
+                                                         "tick"}
+    for cat, st in want_report["stages"].items():
+        assert {k: stages[cat][k] for k in st} == st
+    timed = {"eq": 4, "conv": 4}            # the StageTimer's stages
+    for cat, st in stages.items():
+        if cat in timed:
+            assert st["stream_count"] == timed[cat]
+            assert st["stream_max_us"] == pytest.approx(
+                max(1e6 * 0.0007 * (k + 1) for k in range(0, 20, 5))
+                if cat == "eq" else 200.0)
+        else:
+            assert "stream_count" not in st
+    assert report["events_seen"] == 20
+    assert report["events_dropped"] == \
+        max(0, 14 - capacity) + max(0, 6 - capacity)
+
+
+def _event(e):
+    """A DiagEvent's fields, without the JAX package's budget field."""
+    d = dataclasses.asdict(e)
+    d.pop("budget_permille", None)
+    return d
 
 
 # (seconds since the previous step, the step's duration, count_xrun)
