@@ -39,11 +39,22 @@
    one warp and in f64, the time a step of each mode, the SM clock while
    it runs, and the chain warp's cycles a step from the time and that
    clock.
+5b. The local 2x soft clip kernel (csrc/softclip.cu) against its plain
+   version (two cuDNN conv1d FIRs and eager elementwise, TF32 off) on the
+   card, at master384k_d24's call (R = 512 rows x N = 480,000, f32) and
+   config6_f64's parity shape (8 rows x 3,840,000, f64), noise x 0.4,
+   saturation 0.3: f32 relative RMS <= 3e-7 against the plain version in
+   f64 (tests/test_torch_softclip_kernel.py's bound), the f32 plain
+   version held to the same; f64 max |diff| <= 1e-12 x max |plain|; one
+   launch a call; the kernel's and the plain version's times (CUDA
+   events) beside the bound (bytes: x read once and y written once;
+   operations: SOFT_CLIP_OPS a sample).
 6. Bench config6 (384 kHz, 768k-tap IR, soft clip, lattice dither to 24
    bits): (a) 4 streams x 1.25 s: the pre-quantizer signal of the f32
    kernel path against the f64 plain path on the card, relative RMS
    <= 2e-5; the dithered output finite, on the 24-bit grid and within the
-   fir ladder's bound; every one of the four kernels launched; (b) 256
+   fir ladder's bound; every one of the five kernels launched, the soft
+   clip once; (b) 256
    streams x 1.25 s: realtime factor, spread, peak memory and the
    quantizer's share of the call.
 7. The fused P <= 8 kernel against its plain version on the card at the
@@ -195,7 +206,8 @@
    Prints its own seconds.
 17. A JSON line of the kernels (launches: the f32 frame kernels' and the
    fused kernel's from the prefilter chain's run of phase 8a, the
-   quantizer's from config6's of phase 6a, the f64 kernels' from the f64
+   quantizer's and the soft clip's from config6's of phase 6a, the f64
+   kernels' from the f64
    headline's of phase 11a, osa_rfft's from the folded serving run of
    14a; every path's counts beside them (the self-check path's of 3c
    included), the staged lines', config3's and the
@@ -226,7 +238,7 @@ import torch
 from convopeq_tpu_torch import cli as cli_mod
 from convopeq_tpu_torch import (config3, config6, headline, nuc3, parity,
                                 serve, staged, train_banks)
-from convopeq_tpu_torch.device import card_description
+from convopeq_tpu_torch.device import card_description, resolve_device
 from convopeq_tpu_torch.engine import engine as engine_mod
 from convopeq_tpu_torch.models import dither, learner, metering
 from convopeq_tpu_torch.models import eq as eq_model
@@ -242,6 +254,7 @@ from convopeq_tpu_torch.ops import frame_conv_kernels as fk
 from convopeq_tpu_torch.ops import fused_conv_kernels as fc
 from convopeq_tpu_torch.ops import oversample
 from convopeq_tpu_torch.ops import quantize_kernels as qk
+from convopeq_tpu_torch.ops import softclip as sc
 from convopeq_tpu_torch.ops.limiter import peak_limiter
 from convopeq_tpu_torch.ops.partitioned_conv import uniform_partitioned_conv
 from convopeq_tpu_torch.parallel import dryrun
@@ -259,7 +272,8 @@ SOURCES = {"frames_rfft": FRAME_CU, "causal_mac": FRAME_CU,
                "convopeq_tpu_torch/csrc/error_feedback_quantize.cu",
            "fused_conv": FRAME_CU, "frames_rfft_f64": FRAME_CU,
            "causal_mac_c128": FRAME_CU, "irfft_valid_f64": FRAME_CU,
-           "osa_rfft": FRAME_CU}
+           "osa_rfft": FRAME_CU,
+           "soft_clip_local2x": "convopeq_tpu_torch/csrc/softclip.cu"}
 REPLACES = {
     "frames_rfft": "convopeq_tpu/ops/pallas_gemm_fft.py:335",
     "causal_mac": "convopeq_tpu/ops/pallas_gemm_fft.py:543",
@@ -270,6 +284,8 @@ REPLACES = {
     "causal_mac_c128": "convopeq_tpu/ops/pallas_dd_fft.py:586",
     "irfft_valid_f64": "convopeq_tpu/ops/pallas_dd_fft.py:465",
     "osa_rfft": "convopeq_tpu/ops/pallas_gemm_fft.py:133",
+    "soft_clip_local2x": "none: XLA fused convopeq_tpu/ops/softclip.py:48 "
+                         "on the TPU",
 }
 # fused kernel check shapes (C, K, p, P): the prefilter at 60 s, the
 # fused2 near layer at 60 s, the room IR's L1 at 10 s, the largest
@@ -294,13 +310,15 @@ def check(cond, what):
 
 
 def launches_now():
-    return {**fk.launch_counts, **fc.launch_counts, **qk.launch_counts}
+    return {**fk.launch_counts, **fc.launch_counts, **qk.launch_counts,
+            **sc.launch_counts}
 
 
 def reset_launches():
     fk.reset_launch_counts()
     fc.reset_launch_counts()
     qk.reset_launch_counts()
+    sc.reset_launch_counts()
 
 
 def time_ms(fn, reps=7):
@@ -809,6 +827,74 @@ def phase_quantizer(card):
     return row
 
 
+# soft clip check shapes (R, N, dtype): master384k_d24's call (256 stereo
+# streams x 1.25 s at 384 kHz) and config6_f64's parity shape (4 stereo
+# streams x 10 s)
+SOFT_CLIP_SHAPES = [(512, 480_000, torch.float32),
+                    (8, 3_840_000, torch.float64)]
+# operations of one soft clip (ops/softclip.py `soft_clip`) where |v|
+# passes the knee's start: |v|, the test, the sign (3); t and ks (8); the
+# rational tanh's argument (4), numerator and denominator (11) and
+# quotient (1); clipped (2), mixed (3), factor (5) and y (2)
+CLIP_OPS = 39
+# operations a sample of soft_clip_local2x: two 16-tap FIRs (a multiply
+# and an add a tap), two clips, the scalings by 2 and 0.5 and the sum
+SOFT_CLIP_OPS = 2 * 2 * 16 + 2 * CLIP_OPS + 4
+
+
+def phase_soft_clip(card):
+    """5b: the kernel against its plain version at SOFT_CLIP_SHAPES;
+    returns the f32 row with the f64 row under "f64"."""
+    dev = resolve_device("cuda")        # TF32 off for the plain version
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params = sc.soft_clip_params(0.3)
+    rows = {}
+    for R, N, dt in SOFT_CLIP_SHAPES:
+        x = torch.randn((R, N), generator=gen, device=dev, dtype=dt) * 0.4
+        sc.reset_launch_counts()
+        y = sc.soft_clip_local2x(x, *params)
+        torch.cuda.synchronize()
+        check(sc.launch_counts["soft_clip_local2x"] == 1,
+              f"soft clip {R}x{N}: one launch ({sc.launch_counts})")
+        plain = sc.soft_clip_local2x_plain(x, *params)
+        f32 = dt == torch.float32
+        if f32:
+            ref = sc.soft_clip_local2x_plain(x.double(), *params)
+            err = parity.rel_rms(y, ref)
+            err_plain = parity.rel_rms(plain, ref)
+            del ref
+            what = (f"rel RMS vs the plain version in f64 {err:.3e} (tol "
+                    f"3e-7; the f32 plain version {err_plain:.3e})")
+            ok = err <= 3e-7 and err_plain <= 3e-7
+        else:
+            err = float((y - plain).abs().max() / plain.abs().max())
+            what = f"max|diff| / max|plain| {err:.3e} (tol 1e-12)"
+            ok = err <= 1e-12
+        finite = bool(torch.isfinite(y).all())
+        del y, plain
+        kernel_ms = time_ms(lambda: sc.soft_clip_local2x(x, *params))
+        plain_ms = time_ms(lambda: sc.soft_clip_local2x_plain(x, *params),
+                           reps=3)
+        least, by = bound(2 * R * N * x.element_size(),
+                          R * N * SOFT_CLIP_OPS,
+                          F32_OPS_S if f32 else F64_OPS_S)
+        name = str(dt)[6:]
+        print(f"soft_clip_local2x {R}x{N} {name}: {what}, finite {finite}; "
+              f"kernel {kernel_ms:.3f} ms, bound {least:.3f} ms ({by}; "
+              f"{2 * R * N * x.element_size() / 1e9:.3f} GB, "
+              f"{R * N * SOFT_CLIP_OPS / 1e9:.2f} GFLOP), "
+              f"{100 * least / kernel_ms:.1f}% of it; plain (cuDNN conv1d "
+              f"+ eager) {plain_ms:.3f} ms [{card}]")
+        check(ok and finite, f"soft clip {R}x{N} {name} matches the plain "
+              f"version")
+        rows[name] = {"shape": [R, N], "error": err, "kernel_ms": kernel_ms,
+                      "bound_ms": least, "bound_by": by,
+                      "plain_ms": plain_ms}
+        del x
+        torch.cuda.empty_cache()
+    return {**rows["float32"], "f64": rows["float64"]}
+
+
 def ladder_bound_lsb(k9):
     """|q - y h| in LSB for the fir ladder: |feedback| <= sum|k| times the
     state bound prod(1 + |k|) x 2 LSB, plus the rounding and the TPDF
@@ -860,6 +946,8 @@ def phase_config6(card):
     check(max_lsb <= lim, "output within the fir ladder's bound")
     check(all(launches[n] > 0 for n in [*fk.F32_KERNELS, *qk.launch_counts]),
           "every kernel of the config6 path launched")
+    check(launches["soft_clip_local2x"] == 1,
+          f"one soft clip launch in the config6 call ({launches})")
     del x, y32, y64, q, chain64, grid, dev_lsb
 
     # (b) 256 streams x 1.25 s
@@ -2431,6 +2519,7 @@ def main():
     phase_layer_shapes(card)
     headline_rtf = phase_headline(card)
     rows["error_feedback_quantize"] = phase_quantizer(card)
+    rows["soft_clip_local2x"] = phase_soft_clip(card)
     config6_launches = phase_config6(card)
     by_path = {"config6": config6_launches}
     by_path["prefilter"], _ = phase_prefilter(card)
@@ -2452,6 +2541,7 @@ def main():
     f64 = by_path["headline_f64"]
     launches = {**by_path["prefilter"], "error_feedback_quantize":
                 config6_launches["error_feedback_quantize"],
+                "soft_clip_local2x": config6_launches["soft_clip_local2x"],
                 **{n: f64[n] for n in fk.F64_KERNELS},
                 "osa_rfft": by_path["serve_folded"]["osa_rfft"]}
     print(json.dumps({"kernels": [
@@ -2460,7 +2550,7 @@ def main():
          **({"config3": mac_rows[name]} if name in mac_rows else {}),
          **({"serving_shapes": serving_shapes[name]}
             if name in serving_shapes else {}),
-         "launches_by_path": {k: v[name] for k, v in by_path.items()}}
+         "launches_by_path": {k: v.get(name) for k, v in by_path.items()}}
         for name in SOURCES]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

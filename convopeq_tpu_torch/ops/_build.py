@@ -51,6 +51,7 @@ class Library:
 
 _EFQ_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _DP, _I, _D, _D, _P]
 _EFQ_ROWS_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _D, _D, _P]
+_SC_ARGS = [_P, _P, _I, _I, _DP, _D, _D, _D, _P]
 
 LIBRARIES = {
     "frame_conv": Library(
@@ -74,6 +75,11 @@ LIBRARIES = {
             "error_feedback_quantize_f64": _EFQ_ARGS,
             "error_feedback_quantize_rows_f32": _EFQ_ROWS_ARGS,
             "error_feedback_quantize_rows_f64": _EFQ_ROWS_ARGS,
+        }),
+    "softclip": Library(
+        "softclip", _PKG / "csrc" / "softclip.cu", NVCC_FLAGS, {
+            "soft_clip_local2x_f32": _SC_ARGS,
+            "soft_clip_local2x_f64": _SC_ARGS,
         }),
 }
 

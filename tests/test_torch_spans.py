@@ -302,7 +302,8 @@ def test_setup_spans_count_the_outermost_fold(render):
     assert got["test.inner"]["calls"] == 1
 
 
-@pytest.mark.parametrize("name", ["frame_conv", "error_feedback_quantize"])
+@pytest.mark.parametrize("name", ["frame_conv", "error_feedback_quantize",
+                                  "softclip"])
 def test_library_load_is_a_setup_span(monkeypatch, name):
     """`ops/_build.load`'s first call of a library is one "setup.build"
     call; later calls add nothing (nvcc and the binding faked: no CUDA
