@@ -8,14 +8,12 @@ prints one JSON line a reading: the program's numbers on each seed of
 benchmark run), and the control's on each of --control-seeds.  The
 benchmark's own runs never run the control.
 
-The control is what a later change might be tempted to ship: the
-configuration states float32, so offline it is the reference put in the
-program's place in bfloat16 (each stage's output, the input and the IR
-rounded to bfloat16, the arithmetic between in float32), judged by the
-same comparison; a dithered cell's control then quantizes with the
-reference quantizer in float32 (there is no bfloat16 24-bit grid).  Live
-it is the program's own lower-precision path: the streaming chain with
-its frequency-domain delay line in float16.
+The control is what a later change might be tempted to ship, a step
+below the precision the configuration states: offline the system's
+`control_render` on the cell's own inputs (its module says what it
+computes), judged by the system's own comparison; live the program's
+own lower-precision path: the system's live chain with its
+frequency-domain delay line in float16.
 """
 from __future__ import annotations
 
@@ -23,17 +21,9 @@ import argparse
 import json
 import sys
 
-import numpy as np
 import torch
 
-from . import check, harness, system, traffic
-from .reference import chain as R
-from .reference import coeffs as C
-from .reference.quantizer import lattice_quantize
-
-
-def bf16(t):
-    return t.to(torch.bfloat16).to(torch.float32)
+from . import harness, system, traffic
 
 
 def control_render(workload: str, seed: int, device="cuda",
@@ -43,33 +33,14 @@ def control_render(workload: str, seed: int, device="cuda",
     _, cfg, mix = harness.cell_data(workload)
     cfg.update(config_override or {})
     mix.update(traffic_override or {})
+    sysmod = harness.system_for(cfg, mix["kind"])
+    if not hasattr(sysmod, "control_render"):
+        raise ValueError(f"system {cfg['system']!r} has no control_render")
     dev = torch.device(device)
     ir = system.ir_from_seed(cfg, seed)
-    d = cfg.get("dither")
-    inputs = traffic.render_inputs(mix, cfg, seed, dev, d is not None)
-    semi = cfg["render"]["fold"] == "semi_folded"
-    h = bf16(check.folded_response(cfg, ir, dev, semi))
-    sr = float(cfg["sample_rate"])
-    outs = []
-    for x, u in inputs:
-        y = R.run_chain(bf16(x), h, cfg["chain"], sr, rnd=bf16)
-        if d is None:
-            outs.append(y)
-            continue
-        q = torch.zeros_like(y)
-        outs.append((y, q))
-    if d is not None:
-        n = check.QUANT_SAMPLES
-        rows = check.quant_rows(seed, len(inputs), inputs[0][0].shape[0])
-        ys = np.stack([outs[k][0][r, c, :n].cpu().numpy()
-                       for k, r, c in rows])
-        us = np.stack([inputs[k][1][r, c, :n].cpu().numpy()
-                       for k, r, c in rows])
-        qs = lattice_quantize(ys, us, d["reflection_coeffs"],
-                              int(d["bit_depth"]), C.K_OUTPUT_HEADROOM)
-        for i, (k, r, c) in enumerate(rows):
-            outs[k][1][r, c, :n] = torch.as_tensor(qs[i], device=dev)
-    return check.check_render(cfg, ir, inputs, outs, seed)
+    inputs = traffic.render_inputs(mix, cfg, seed, dev,
+                                   cfg.get("dither") is not None)
+    return sysmod.control_render(cfg, ir, inputs, seed)
 
 
 def main(argv=None) -> int:

@@ -1,12 +1,16 @@
 """One run of one cell, driven by data: BENCHMARK.json names the cell's
 configuration file and traffic mix; the configuration
-(`benchmark/configs/<name>.json`) gives the chain, the mix
-(`benchmark/traffic/<traffic>.json`) the load, and each per-layer
-metric is the function `read(ctx)` of `benchmark/metrics/<name>.py`,
-which returns its number or None when the run gave it nothing to read.
+(`benchmark/configs/<name>.json`) names its system under test by its
+"system" key and gives that system's sizes, the mix
+(`benchmark/traffic/<traffic>.json`) the load, the system is the module
+`benchmark/systems/<system>.py` (its program, the check of its outputs
+and its kernels' launch counters; see benchmark/systems/__init__.py),
+and each per-layer metric is the function `read(ctx)` of
+`benchmark/metrics/<name>.py`, which returns its number or None when
+the run gave it nothing to read.
 
-A later cell, configuration, mix or metric is a new file and a new
-entry in BENCHMARK.json: nothing here names one.
+A later cell, configuration, system, mix or metric is a new file and a
+new entry in BENCHMARK.json: nothing here names one.
 """
 from __future__ import annotations
 
@@ -19,10 +23,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import check, roofline, system, traffic
+from . import roofline, system, traffic
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "convopeq_tpu")
+# what a system module gives for each traffic kind it serves
+KIND_FUNCTIONS = {"render": ("render", "check_render"),
+                  "live": ("live", "check_live")}
 
 
 def load_spec(root: Path = ROOT) -> dict:
@@ -44,12 +51,22 @@ def cell(spec: dict, name: str):
     raise KeyError(f"no workload {name!r} in BENCHMARK.json")
 
 
+def load_config(path: Path) -> dict:
+    """A configuration file; one that names no system is refused."""
+    cfg = load_json(path)
+    if "system" not in cfg:
+        raise ValueError(f"configuration {path.name} names no system: it "
+                         f"needs a \"system\" key, the name of a module "
+                         f"under benchmark/systems/")
+    return cfg
+
+
 def cell_data(workload: str, root: Path = ROOT):
     """(workload entry, configuration, traffic mix) of a cell, from the
     files BENCHMARK.json names."""
     w, centry = cell(load_spec(root), workload)
     mix = root / "benchmark" / "traffic" / f"{w['traffic']}.json"
-    return w, load_json(root / centry["file"]), load_json(mix)
+    return w, load_config(root / centry["file"]), load_json(mix)
 
 
 def metrics_of(spec: dict, workload: str, trace: bool) -> list:
@@ -74,6 +91,36 @@ def reader(name: str, root: Path = ROOT):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def system_module(name: str, root: Path = ROOT):
+    """The module benchmark/systems/<name>.py under `root`: imported as
+    `benchmark.systems.<name>` when it is this package's own, else loaded
+    from its file, as a metric's reader is."""
+    path = (root / "benchmark" / "systems" / f"{name}.py").resolve()
+    if not path.is_file():
+        raise ValueError(f"no system {name!r}: {path} does not exist")
+    if path == Path(__file__).resolve().parent / "systems" / f"{name}.py":
+        return importlib.import_module(f"benchmark.systems.{name}")
+    spec = importlib.util.spec_from_file_location(
+        "benchmark_system_" + name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def system_for(cfg: dict, kind: str, root: Path = ROOT):
+    """The configuration's system module, refused unless it serves the
+    traffic kind."""
+    if kind not in KIND_FUNCTIONS:
+        raise ValueError(f"traffic kind {kind!r}")
+    mod = system_module(cfg["system"], root)
+    missing = [f for f in KIND_FUNCTIONS[kind] + ("launch_counts",)
+               if not callable(getattr(mod, f, None))]
+    if missing:
+        raise ValueError(f"system {cfg['system']!r} does not serve traffic "
+                         f"kind {kind!r}: it lacks {', '.join(missing)}")
+    return mod
 
 
 def forbidden_modules() -> list:
@@ -114,20 +161,19 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     t_setup0 = t_setup0 or (lambda t: 0.0)
+    sysmod = system_for(cfg, mix["kind"], root)
     ir = system.ir_from_seed(cfg, seed)
     item = 8 if cfg["dtype"] == "float64" else 4
     ctx = {"kind": mix["kind"], "config": cfg, "traffic": mix, "item": item,
            "trace": None}
     if mix["kind"] == "render":
-        res, numbers, attempted, failed = _render(cfg, mix, ir, seed,
+        res, numbers, attempted, failed = _render(sysmod, cfg, mix, ir, seed,
                                                   seconds, trace, dev,
                                                   t_setup0, ctx)
-    elif mix["kind"] == "live":
-        res, numbers, attempted, failed = _live(cfg, mix, ir, seed, seconds,
-                                                trace, dev, t_setup0, ctx,
-                                                log, fdl_dtype)
     else:
-        raise ValueError(f"traffic kind {mix['kind']!r}")
+        res, numbers, attempted, failed = _live(sysmod, cfg, mix, ir, seed,
+                                                seconds, trace, dev, t_setup0,
+                                                ctx, log, fdl_dtype)
     correct, checks = _limits_judge(numbers, cfg["limits"][mix["kind"]])
     metrics = {}
     for m in metrics_of(spec, workload, trace):
@@ -153,17 +199,17 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     return out
 
 
-def _render(cfg, mix, ir, seed, seconds, trace, dev, t_setup0, ctx):
-    sysm = system.Render(cfg, ir, dev)
+def _render(sysmod, cfg, mix, ir, seed, seconds, trace, dev, t_setup0,
+            ctx):
+    sysm = sysmod.render(cfg, ir, dev)
     inputs = traffic.render_inputs(mix, cfg, seed, dev,
                                    cfg.get("dither") is not None)
-    r = traffic.run_render(sysm, inputs, seconds, trace, t_setup0)
+    r = traffic.run_render(sysm, inputs, seconds, trace, t_setup0,
+                           sysmod.launch_counts)
     n = inputs[0][0].shape[-1]
     B = inputs[0][0].shape[0]
-    p, P = sysm.layers[0]
     ctx.update({"calls": r["calls"], "wall_s": r["wall_s"],
-                "render": {"C": B, "K": -(-n // p), "p": p, "P": P,
-                           "channels": 2, "R": 2 * B, "N": n}})
+                "render": sysm.shapes(inputs)})
     if r["segment"] is not None:
         ctx["trace"] = r["segment"]["trace"]
         ctx["traced_calls"] = r["segment"]["calls"]
@@ -179,13 +225,13 @@ def _render(cfg, mix, ir, seed, seconds, trace, dev, t_setup0, ctx):
     failed = sum(0 if all(bool(torch.isfinite(t).all()) for t in
                           (y if isinstance(y, tuple) else (y,))) else 1
                  for y in outputs)
-    numbers = check.check_render(cfg, ir, inputs, outputs, seed)
+    numbers = sysmod.check_render(cfg, ir, inputs, outputs, seed)
     return res, numbers, r["calls"], failed
 
 
-def _live(cfg, mix, ir, seed, seconds, trace, dev, t_setup0, ctx, log,
-          fdl_dtype=None):
-    sysm = system.Live(cfg, ir, dev, fdl_dtype)
+def _live(sysmod, cfg, mix, ir, seed, seconds, trace, dev, t_setup0, ctx,
+          log, fdl_dtype=None):
+    sysm = sysmod.live(cfg, ir, dev, fdl_dtype)
     block = sysm.block_size
     period = block / float(cfg["sample_rate"])
     n_window = max(1, int(round(seconds / period)))
@@ -198,7 +244,7 @@ def _live(cfg, mix, ir, seed, seconds, trace, dev, t_setup0, ctx, log,
     keep = np.sort(rng.choice(streams, size=min(int(mix["check_streams"]),
                                                 streams), replace=False))
     r = traffic.run_live(sysm, feed, mix, n_window, period, trace, keep,
-                         t_setup0, warm, n_trace)
+                         t_setup0, warm, n_trace, dev, sysmod.launch_counts)
     late = np.asarray(r["generator_late_s"]) * 1e3
     if late.size:
         log(f"generator: {late.size} of {n_window} blocks started on time, "
@@ -221,7 +267,8 @@ def _live(cfg, mix, ir, seed, seconds, trace, dev, t_setup0, ctx, log,
            "peak_bytes": r["peak_bytes"]}
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    numbers = check.check_live(cfg, ir, feed, keep, r["kept"], n_window, dev)
+    numbers = sysmod.check_live(cfg, ir, feed, keep, r["kept"], n_window,
+                                dev)
     return res, numbers, n_window, r["failed"]
 
 

@@ -1,4 +1,4 @@
-"""Stream milliseconds a call in the semi-folded chain's output DC
+"""Stream milliseconds a call in the chain's output DC
 blocker (the program's "chain.dc_block" span)."""
 from benchmark import spans
 

@@ -1,4 +1,4 @@
-"""Stream milliseconds a call in the semi-folded chain's local 2x soft
+"""Stream milliseconds a call in the chain's local 2x soft
 clip (the program's "chain.soft_clip" span)."""
 from benchmark import spans
 

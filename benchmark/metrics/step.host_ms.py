@@ -1,4 +1,4 @@
-"""Host milliseconds from StreamingChain.step's call to its return,
+"""Host milliseconds from the live system's step call to its return,
 median over the window's blocks (host clock)."""
 import numpy as np
 

@@ -6,7 +6,8 @@ left out, and, live, a step that returns its state unchanged."""
 import pytest
 import torch
 
-from benchmark import harness, system
+from benchmark import harness
+from benchmark.systems import folded
 
 from .conftest import SMALL
 
@@ -27,14 +28,14 @@ def _half(y):
                                       "master384k_d24.render"])
 @pytest.mark.parametrize("fault", [_alter, _half])
 def test_render_fault_is_caught(monkeypatch, workload, fault):
-    call = system.Render.call
+    call = folded.Render.call
 
     def broken(self, x, u=None):
         out = call(self, x, u)
         if isinstance(out, tuple):
             return fault(out[0]), fault(out[1])
         return fault(out)
-    monkeypatch.setattr(system.Render, "call", broken)
+    monkeypatch.setattr(folded.Render, "call", broken)
     cfg, mix = SMALL[workload]
     r = harness.run_cell(workload, 2 ** 31 + 7, 0.01, False, "cpu",
                          config_override=cfg, traffic_override=mix)
@@ -43,14 +44,14 @@ def test_render_fault_is_caught(monkeypatch, workload, fault):
 
 def test_quantizer_fault_is_caught(monkeypatch):
     """The dither's answer altered alone (the chain's output intact)."""
-    call = system.Render.call
+    call = folded.Render.call
 
     def broken(self, x, u=None):
         y, q = call(self, x, u)
         q = q.clone()
         q[..., 10] += 2.0 ** -23
         return y, q
-    monkeypatch.setattr(system.Render, "call", broken)
+    monkeypatch.setattr(folded.Render, "call", broken)
     cfg, mix = SMALL["master384k_d24.render"]
     r = harness.run_cell("master384k_d24.render", 2 ** 31 + 7, 0.01, False,
                          "cpu", config_override=cfg, traffic_override=mix)
@@ -79,7 +80,7 @@ def _half_step(self, state, block):
 
 @pytest.mark.parametrize("fault", [_stale_step, _altered_step, _half_step])
 def test_live_fault_is_caught(monkeypatch, fault):
-    monkeypatch.setattr(system.Live, "step", fault)
+    monkeypatch.setattr(folded.Live, "step", fault)
     cfg, mix = SMALL["hall1m_48k.live"]
     mix = {**mix, "check_streams": mix["streams"]}
     r = harness.run_cell("hall1m_48k.live", 2 ** 31 + 9, 0.3, False, "cpu",

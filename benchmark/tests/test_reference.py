@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from benchmark import harness, system
+from benchmark.systems import folded
 from benchmark.reference import chain as R
 from benchmark.reference import coeffs as C
 from benchmark.reference.quantizer import lattice_quantize
@@ -39,7 +40,7 @@ def test_render_chain_matches_port(name):
     cfg = _cfg(name, render={"fold": _cfg(name)["render"]["fold"],
                              "partition": 4096})
     ir = system.ir_from_seed(cfg, 2 ** 31 + 11)
-    s = system.Render(cfg, ir, "cpu")
+    s = folded.Render(cfg, ir, "cpu")
     s.dither = None
     x = torch.randn((2, 2, 30000), generator=torch.Generator().manual_seed(3),
                     dtype=torch.float64) * 0.25
@@ -51,7 +52,7 @@ def test_render_chain_matches_port(name):
 def test_streaming_chain_matches_reference_from_the_first_block():
     cfg = _cfg("hall1m_48k")
     ir = system.ir_from_seed(cfg, 17)
-    live = system.Live(cfg, ir, "cpu")
+    live = folded.Live(cfg, ir, "cpu")
     st = live.init_state(2)
     x = torch.randn((2, 2, 512 * 40), dtype=torch.float64,
                     generator=torch.Generator().manual_seed(4)) * 0.25

@@ -28,8 +28,6 @@ import numpy as np
 import torch
 
 from . import trace as tr
-from .system import launch_counts
-
 
 
 def _sync(dev):
@@ -60,8 +58,9 @@ def _peak_bytes(dev) -> int:
         else 0
 
 
-def _traced(segment) -> dict:
-    """The segment's trace and the port's kernel launches in it."""
+def _traced(segment, launch_counts) -> dict:
+    """The segment's trace and the system's kernel launches in it, from
+    its counters `launch_counts()`."""
     before = launch_counts()
     t = tr.profile(segment)
     after = launch_counts()
@@ -85,7 +84,8 @@ def render_inputs(traffic: dict, cfg: dict, seed: int, dev, dither: bool):
     return out
 
 
-def run_render(system, inputs, seconds: float, trace: bool, t_setup0):
+def run_render(system, inputs, seconds: float, trace: bool, t_setup0,
+               launch_counts):
     """The closed loop.  Returns a dict: calls, wall_s, setup_s, peak,
     the last output of each batch, and the traced segment (or None)."""
     dev = inputs[0][0].device
@@ -118,7 +118,7 @@ def run_render(system, inputs, seconds: float, trace: bool, t_setup0):
                     y = system.call(*inputs[i % nb])
                     _sync(dev)
                 del y
-        seg = {**_traced(segment), "calls": n_trace}
+        seg = {**_traced(segment, launch_counts), "calls": n_trace}
     return {"calls": calls, "wall_s": wall, "setup_s": setup_s,
             "peak_bytes": peak, "outputs": outs, "segment": seg}
 
@@ -150,14 +150,13 @@ class LiveFeed:
 
 def run_live(system, feed: LiveFeed, traffic: dict, n_window: int,
              period_s: float, trace: bool, keep, t_setup0, warm: int,
-             n_trace: int):
+             n_trace: int, dev, launch_counts):
     """The open loop: `warm` blocks on a throwaway state, then the window
     of `n_window` blocks from a fresh state, then, when traced, `n_trace`
     more blocks under the profiler.  keep: the streams whose output is
     kept for the check.  Returns latencies, host step times, the
     generator's lateness, the kept output, peak and the segment."""
     streams = int(traffic["streams"])
-    dev = system.chain.device
     block = feed.block
     out = torch.empty((streams, 2, block), dtype=feed.pool.dtype,
                       pin_memory=dev.type == "cuda")
@@ -220,7 +219,8 @@ def run_live(system, feed: LiveFeed, traffic: dict, n_window: int,
             t1 = time.perf_counter() + period_s
             for i in range(n_trace):
                 state, _, _ = one(n_window + i, t1 + i * period_s, True)
-        seg = {**_traced(segment), "steps": n_trace, "first_step": n_window}
+        seg = {**_traced(segment, launch_counts), "steps": n_trace,
+               "first_step": n_window}
     del state
     return {"latency_s": lat, "host_s": host, "generator_late_s": late_gen,
             "failed": failed, "kept": kept, "peak_bytes": peak,
