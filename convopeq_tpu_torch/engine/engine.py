@@ -24,10 +24,12 @@ How the port differs from the JAX package:
   package's jitted closures), each with a snapshot of the EQ parameters
   it was built from; a published chain keeps its own convolver state, so
   a later crossfade runs the old chain as it was.
-- `process(x, generator=None, uniforms=None)`: the dither's TPDF
-  uniforms (..., N, 2) are passed in or drawn from `generator`; with
-  neither, from a generator seeded 0 each call (the JAX package's default
-  key PRNGKey(0): a deterministic default, not the same numbers).
+- `process(x, generator=None, uniforms=None, return_chain_output=False)`:
+  the dither's TPDF uniforms (..., N, 2) are passed in or drawn from
+  `generator`; with neither, from a generator seeded 0 each call (the JAX
+  package's default key PRNGKey(0): a deterministic default, not the
+  same numbers).  return_chain_output=True also returns the chain's
+  output, the signal the dither quantizes.
 - `process_streaming` draws each block's uniforms from one torch
   Generator the engine owns, seeded 0 at construction (the JAX package's
   fold_in(key, block) of one key).  The streaming state is updated in
@@ -69,7 +71,8 @@ from ..runtime.crossfade import (CrossfadeState, classify_transition,
                                  fade_time_for)
 from ..runtime.streaming import StreamingChain
 from ..runtime.telemetry import (RuntimeHealthMonitor, RuntimePolicyEngine,
-                                 StageTimer, TelemetryRecorder, XrunDetector)
+                                 StageTimer, TelemetryRecorder, XrunDetector,
+                                 setup_span)
 from ..utils.dsputil import K_OUTPUT_HEADROOM, next_pow2
 from ..utils.wavio import read_wav
 from .cache import LRUCache, MixedPhaseDiskCache, content_hash
@@ -300,9 +303,11 @@ class ConvoPeqEngine:
         self._learn_gens = 1
 
     # ------------------------------------------------------------------ IR
+    @setup_span("setup.load")
     def load_impulse_response(self, ir, ir_sample_rate=None,
                               phase_mode=None, target_seconds=None):
-        """Full loader pipeline.  ir: path or (C, N)/(N,) array."""
+        """Full loader pipeline.  ir: path or (C, N)/(N,) array.  Its
+        host seconds add to the set-up span "setup.load"."""
         if isinstance(ir, (str, bytes)) or hasattr(ir, "__fspath__"):
             wav = read_wav(ir)
             ir = wav.samples
@@ -516,6 +521,14 @@ class ConvoPeqEngine:
                 cfg_repr, self.auto_gain_enabled,
                 self.dither_type, self.dither_bit_depth, ir_key)
 
+    def nuc_layer_shapes(self) -> list[tuple[int, int, int]]:
+        """[(partition size, partitions, offset)] of the loaded IR's NUC
+        layers, one channel's (both channels share the plan)."""
+        if self._conv_state is None:
+            return []
+        return [(lp.part_size, lp.num_parts, lp.offset)
+                for lp in self._conv_state.left.plan.layers]
+
     def _forward_horizon(self) -> int:
         """How many samples beyond n the chain output at n can depend on:
         the largest NUC partition (circular per-partition spectrum
@@ -591,9 +604,12 @@ class ConvoPeqEngine:
             if n_proc < steps else None
         return torch.as_tensor(ramp, dtype=self.dtype, device=self.device)
 
-    def process(self, x, generator=None, uniforms=None):
+    def process(self, x, generator=None, uniforms=None,
+                return_chain_output: bool = False):
         """Process (..., 2, N) audio through the full chain on the engine's
-        device; returns a tensor there.
+        device; returns a tensor there, or with return_chain_output=True
+        the pair (y, q): y the chain's output, which the dither quantizes,
+        and q the output (y itself when the dither is off).
 
         A structural config change since the previous call is crossfaded:
         the OLD chain runs over the fade window (plus its forward horizon)
@@ -668,14 +684,15 @@ class ConvoPeqEngine:
                                bool(cfg.apply_output_headroom),
                            "margin": self._forward_horizon()}
 
+        q = y
         if self.dither_bit_depth > 0:
             if uniforms is None and generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
-            y = apply_dither(y, self.dither_type, self.sample_rate,
+            q = apply_dither(y, self.dither_type, self.sample_rate,
                              self.dither_bit_depth, uniforms=uniforms,
                              generator=generator,
                              adaptive_coeffs=self._adaptive_coeffs())
-        return y
+        return (y, q) if return_chain_output else q
 
     def _adaptive_coeffs(self):
         return self.adaptive_banks.get(self.sample_rate,

@@ -125,59 +125,80 @@ def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
     processing rate, which overrides cfg.wet_dry_mix (see
     `convolver.linear_mix_ramp`).  frame_mac passes through to the
     convolver's partitioned convolutions ("plain": the plain frame steps
-    on any device)."""
+    on any device).  Spans (`runtime.telemetry.span`), with the folded
+    chains' names where the stage is the same: "chain" around
+    "chain.sanitize", "chain.dc_block" (each DC blocker),
+    "chain.oversample" (the up and the down cascade), "chain.eq" (the
+    bands and the AGC), "chain.conv" (the trim gain, the stereo NUC and
+    the wet gain), "chain.output_filter", "chain.post" (each scalar gain
+    outside "chain.conv") and "chain.soft_clip"."""
     sr = cfg.sample_rate
     os_factor = resolve_oversampling_factor(cfg.oversampling_factor, sr)
     proc_rate = sr * os_factor
-    x = _sanitize(x)
-    if cfg.input_headroom_gain != 1.0:
-        x = x * cfg.input_headroom_gain
-    x, _ = dc_block(x, sr, 3.0)
-    stages = (make_stages(os_factor, cfg.oversampling_preset)
-              if os_factor > 1 else [])
-    if stages:
-        x = oversample_up(x, stages)
-        x, _ = dc_block(x, proc_rate, 1.0)
-    conv_active = (not cfg.conv_bypassed) and conv_state is not None
-    eq_active = (not cfg.eq_bypassed) and eq_params is not None
+    dev = x.device
+    with span("chain", dev):
+        with span("chain.sanitize", dev):
+            x = _sanitize(x)
+        if cfg.input_headroom_gain != 1.0:
+            with span("chain.post", dev):
+                x = x * cfg.input_headroom_gain
+        with span("chain.dc_block", dev):
+            x, _ = dc_block(x, sr, 3.0)
+        stages = (make_stages(os_factor, cfg.oversampling_preset)
+                  if os_factor > 1 else [])
+        if stages:
+            with span("chain.oversample", dev):
+                x = oversample_up(x, stages)
+            with span("chain.dc_block", dev):
+                x, _ = dc_block(x, proc_rate, 1.0)
+        conv_active = (not cfg.conv_bypassed) and conv_state is not None
+        eq_active = (not cfg.eq_bypassed) and eq_params is not None
 
-    def run_eq(sig):
-        return eq_process(sig, eq_params, proc_rate,
-                          block_size=cfg.agc_block_size * os_factor,
-                          method=cfg.eq_method)
+        def run_eq(sig):
+            with span("chain.eq", dev):
+                return eq_process(sig, eq_params, proc_rate,
+                                  block_size=cfg.agc_block_size * os_factor,
+                                  method=cfg.eq_method)
 
-    def run_conv(sig):
-        return convolver_process(sig, conv_state, cfg.wet_dry_mix,
-                                 frame_mac, mix_ramp)
+        def run_conv(sig, trim=1.0):
+            with span("chain.conv", dev):
+                if abs(trim - 1.0) > 1e-12:
+                    sig = sig * trim
+                return convolver_process(sig, conv_state, cfg.wet_dry_mix,
+                                         frame_mac, mix_ramp)
 
-    if cfg.order == CONVOLVER_THEN_EQ:
-        if conv_active:
-            x = run_conv(x)
-        if eq_active:
-            x = run_eq(x)
-    else:
-        if eq_active:
-            x = run_eq(x)
-        if conv_active:
-            if abs(cfg.convolver_input_trim_gain - 1.0) > 1e-12:
-                x = x * cfg.convolver_input_trim_gain
-            x = run_conv(x)
-    if conv_active or eq_active:
-        conv_is_last = conv_active and (
-            not eq_active or cfg.order == EQ_THEN_CONVOLVER)
-        x = output_filter_process(x, proc_rate, conv_is_last,
-                                  cfg.conv_hc_mode, cfg.conv_lc_mode,
-                                  cfg.eq_lpf_mode)
-    if cfg.output_makeup_gain != 1.0:
-        x = x * cfg.output_makeup_gain
-    if cfg.soft_clip_enabled:
-        clip = soft_clip if stages else soft_clip_local2x
-        x = clip(x, *soft_clip_params(cfg.saturation_amount))
-    if stages:
-        x = oversample_down(x, stages)
-    x, _ = dc_block(x, sr, 3.0)
-    if cfg.apply_output_headroom:
-        x = x * K_OUTPUT_HEADROOM
+        if cfg.order == CONVOLVER_THEN_EQ:
+            if conv_active:
+                x = run_conv(x)
+            if eq_active:
+                x = run_eq(x)
+        else:
+            if eq_active:
+                x = run_eq(x)
+            if conv_active:
+                x = run_conv(x, cfg.convolver_input_trim_gain)
+        if conv_active or eq_active:
+            conv_is_last = conv_active and (
+                not eq_active or cfg.order == EQ_THEN_CONVOLVER)
+            with span("chain.output_filter", dev):
+                x = output_filter_process(x, proc_rate, conv_is_last,
+                                          cfg.conv_hc_mode, cfg.conv_lc_mode,
+                                          cfg.eq_lpf_mode)
+        if cfg.output_makeup_gain != 1.0:
+            with span("chain.post", dev):
+                x = x * cfg.output_makeup_gain
+        if cfg.soft_clip_enabled:
+            clip = soft_clip if stages else soft_clip_local2x
+            with span("chain.soft_clip", dev):
+                x = clip(x, *soft_clip_params(cfg.saturation_amount))
+        if stages:
+            with span("chain.oversample", dev):
+                x = oversample_down(x, stages)
+        with span("chain.dc_block", dev):
+            x, _ = dc_block(x, sr, 3.0)
+        if cfg.apply_output_headroom:
+            with span("chain.post", dev):
+                x = x * K_OUTPUT_HEADROOM
     return x
 
 

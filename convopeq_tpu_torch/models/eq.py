@@ -325,6 +325,19 @@ def eq_process_bands_fft(x, params: EQParams, sample_rate, eps=1e-10):
     return torch.fft.irfft(Y, n=m, dim=-1)[..., :n].to(x.dtype)
 
 
+def _eq_block_size(tail: int) -> int:
+    """The blocked EQ convolution's partition size for a ring tail."""
+    return int(np.clip(next_pow2(max(tail // 4, 1)), 1024, 8192))
+
+
+def eq_fft_blocking(params: EQParams, sample_rate, eps=1e-10):
+    """(p, P): the partition size and count that `_eq_fft_blocked` runs
+    the bands' response at, truncated to their eps ring tail."""
+    tail = _eq_ring_tail_samples(params, sample_rate, eps)
+    p = _eq_block_size(tail)
+    return p, -(-tail // p)
+
+
 def _eq_fft_blocked(x, params: EQParams, sample_rate, tail: int):
     """Blocked EQ convolution: the 2x2 impulse response truncated to
     `tail` taps (sampled on a 2 tail grid, so its circular aliasing is
@@ -338,7 +351,7 @@ def _eq_fft_blocked(x, params: EQParams, sample_rate, tail: int):
     active = band_active_mask(params)
     diag_only = all(int(params.modes[b]) == STEREO
                     for b in range(NUM_BANDS) if active[b])
-    p = int(np.clip(next_pow2(max(tail // 4, 1)), 1024, 8192))
+    p = _eq_block_size(tail)
 
     def make():
         resp = _band_matrix_response_device(params, sample_rate, m,

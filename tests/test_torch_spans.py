@@ -13,9 +13,12 @@ the CPU.
   interval lies inside its event's.
 - Outputs and state are bit for bit the same with the profiler on and
   off.
+- The staged chain (`process_chain`) opens one span tree a call, its
+  stages in the chain's order, with the folded chains' names where the
+  stage is the same; its output is bit for bit the same traced.
 - The StageTimer's and the spans' stream time is the host time when
   their work is not on a CUDA device, even in a process that has
-  initialized CUDA; the set-up spans.
+  initialized CUDA; the set-up spans, the engine's IR load among them.
 - Every per-layer reader that reads the spans returns a number on a
   traced CPU run of the benchmark's small cells, and None once one
   record of the store is dropped.
@@ -29,9 +32,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from benchmark import harness
 from benchmark.tests.conftest import SMALL
+from benchmark.tests.test_app_cell import APP_SMALL
+from convopeq_tpu_torch.engine.engine import ConvoPeqEngine
 from convopeq_tpu_torch.models import chain as t_chain
 from convopeq_tpu_torch.models import dither as t_dither
+from convopeq_tpu_torch.models.convolver import stereo_prepare
 from convopeq_tpu_torch.models.eq import EQParams
+from convopeq_tpu_torch.models.gain_planner import CONVOLVER_THEN_EQ
 from convopeq_tpu_torch.models.nuc import FilterSpec
 from convopeq_tpu_torch.runtime import telemetry as tel
 from convopeq_tpu_torch.runtime.streaming import StreamingChain
@@ -244,6 +251,61 @@ def test_bit_identical_with_tracing_on_and_off(serving, render):
         [ls.step for ls in b.conv_layers]
 
 
+# (config, spans in order) of the staged chain: EQ -> conv at 1x with
+# every scalar gain, the soft clip and the output headroom; conv -> EQ
+# oversampled 2x, no gains
+STAGED = {
+    "eq_conv_1x": (dict(input_headroom_gain=0.5, output_makeup_gain=2.0,
+                        convolver_input_trim_gain=0.8,
+                        soft_clip_enabled=True, saturation_amount=0.3),
+                   ["chain", "chain.sanitize", "chain.post", "chain.dc_block",
+                    "chain.eq", "chain.conv", "chain.output_filter",
+                    "chain.post", "chain.soft_clip", "chain.dc_block",
+                    "chain.post"]),
+    "conv_eq_2x": (dict(order=CONVOLVER_THEN_EQ,
+                        oversampling_factor=2, apply_output_headroom=False),
+                   ["chain", "chain.sanitize", "chain.dc_block",
+                    "chain.oversample", "chain.dc_block", "chain.conv",
+                    "chain.eq", "chain.output_filter", "chain.oversample",
+                    "chain.dc_block"]),
+}
+
+
+@pytest.fixture(scope="module")
+def staged_parts():
+    """(EQ parameters, a 2-layer stereo NUC at block 64, x (2, 2, 2048))
+    of the staged chain, f64."""
+    rng = np.random.default_rng(19)
+    eqp = EQParams()
+    eqp.gains_db[:] = np.linspace(-3.0, 3.0, eqp.gains_db.shape[0])
+    conv = stereo_prepare(torch.from_numpy(_ir(rng, 3000, 600.0)), 64,
+                          FilterSpec(SR), device="cpu")
+    return eqp, conv, torch.from_numpy(rng.normal(size=(2, 2, 2048)) * 0.3)
+
+
+def _staged(parts, case):
+    eqp, conv, x = parts
+    cfg = t_chain.ChainConfig(sample_rate=SR, **STAGED[case][0])
+    return t_chain.process_chain(x, cfg, eqp, conv)
+
+
+@pytest.mark.parametrize("case", sorted(STAGED))
+def test_staged_chain_span_tree(staged_parts, case):
+    n0 = len(tel.SPANS.records)
+    _traced(lambda: _staged(staged_parts, case))
+    recs = tel.spans()[-(len(tel.SPANS.records) - n0):]
+    assert [r.name for r in recs] == STAGED[case][1]
+    assert [None if p is None else p.name for p in _parents(recs)] == \
+        [None] + ["chain"] * (len(recs) - 1)
+
+
+@pytest.mark.parametrize("case", sorted(STAGED))
+def test_staged_chain_bit_identical_traced(staged_parts, case):
+    off = _staged(staged_parts, case)
+    _, on = _traced(lambda: _staged(staged_parts, case))
+    assert torch.equal(on, off)
+
+
 def test_stage_timer_stream_time_on_the_cpu():
     """Work on the CPU: the stage's stream time is its host time, folded
     into the stats when the stage ends; nothing is left pending."""
@@ -302,6 +364,23 @@ def test_setup_spans_count_the_outermost_fold(render):
     assert got["test.inner"]["calls"] == 1
 
 
+def test_engine_ir_load_is_a_setup_span():
+    """`load_impulse_response` is one "setup.load" call, a cached load
+    too; a load inside another "setup.load" adds nothing of its own."""
+    def calls():
+        return tel.setup_seconds().get("setup.load", {"calls": 0})["calls"]
+    ir = _ir(np.random.default_rng(6), 2000, 400.0)
+    eng = ConvoPeqEngine(SR, 64, torch.float64, device="cpu")
+    n0 = calls()
+    eng.load_impulse_response(ir)
+    assert calls() == n0 + 1
+    with tel.setup_span("setup.load"):
+        eng.load_impulse_response(ir * 0.5)
+        eng.load_impulse_response(ir)
+    assert calls() == n0 + 2
+    assert tel.setup_seconds()["setup.load"]["seconds"] > 0.0
+
+
 @pytest.mark.parametrize("name", ["frame_conv", "error_feedback_quantize",
                                   "softclip"])
 def test_library_load_is_a_setup_span(monkeypatch, name):
@@ -329,14 +408,17 @@ CELLS = {"hall1m_48k.render": SMALL["hall1m_48k.render"],
          "hall1m_48k.live": SMALL["hall1m_48k.live"],
          "hall1m_48k.live32": (SMALL["hall1m_48k.live"][0],
                                {"streams": 2, "check_streams": 2,
-                                "trace_blocks": 8})}
+                                "trace_blocks": 8}),
+         "app_48k_psycho.render": APP_SMALL}
 NEW = {"chain.sanitize_ms.render", "chain.conv_ms.render",
        "chain.soft_clip_ms.render", "chain.dc_block_ms.render",
        "dither.eager_ms.render", "nuc.ring_mac_ms.live",
        "nuc.ring_mac.roofline_pct.live", "nuc.fire_ms.live",
        "nuc.host_ms.live", "step.stream_ms.live", "setup.fold_s",
-       "setup.build_s"}
-SETUP = {"setup.fold_s", "setup.build_s"}     # host seconds, not the store
+       "setup.build_s", "chain.eq_ms.app", "chain.output_filter_ms.app",
+       "setup.load_s.app"}
+# host seconds, not the store; the engine's cell loads its IR, no fold
+SETUP = {"setup.fold_s", "setup.build_s", "setup.load_s.app"}
 
 
 @pytest.fixture(scope="module", params=sorted(CELLS))
@@ -355,7 +437,9 @@ def traced_cell(request):
 
 def test_new_readers_read_the_spans(traced_cell):
     cell, ctx, r, names = traced_cell
-    assert SETUP < set(names) and len(names) >= 3
+    setup = {"setup.load_s.app" if cell.startswith("app_")
+             else "setup.fold_s", "setup.build_s"}
+    assert setup == SETUP & set(names) and len(names) >= 3
     for name in names:
         v = harness.reader(name)(ctx)
         assert isinstance(v, float) and np.isfinite(v) and v >= 0.0, \
