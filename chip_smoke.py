@@ -49,6 +49,25 @@
    launch a call; the kernel's and the plain version's times (CUDA
    events) beside the bound (bytes: x read once and y written once;
    operations: SOFT_CLIP_OPS a sample).
+5c. The IIR cascade kernel (csrc/iir_cascade.cu) against its plain
+   version (the DC blocker's Toeplitz GEMMs with their affine scan; the
+   output filter's three `biquad_df2t_scan` calls, TF32 off) and against
+   the FFT form (`iir_cascade_fft`, the plain path's reference) on the
+   card, noise x 0.25: at app_48k_psycho's call (R = 128 rows x N =
+   2,880,000, f32, 48 kHz) `dc_block` at 3 Hz and the EQ-last and
+   convolver-last output filters; at master384k_d24's (512 x 480,000,
+   f32, 384 kHz) `dc_block` at 3 Hz; at config3_staged's processing rate
+   (8 x 1,920,000, f32, 192 kHz) `dc_block` at 1 Hz and the
+   convolver-last output filter; at 8 x 2,880,000 in f64 the EQ-last
+   output filter.  f32 relative RMS <= 1e-6 against either in f64
+   (tests/test_torch_iir_cascade.py's bound), on the first 16 rows; f64
+   relative RMS <= 1e-9 against the f64 plain version (whose 2x2 route
+   sits up to ~7e-11 from the recurrence run in long double on such
+   noise at 48 kHz) and <= 1e-12 against the FFT form (~1e-15 from it);
+   one launch a `dc_block` and one an `output_filter_process` call; the
+   kernel's and the plain version's times (CUDA events) beside the bound
+   (bytes: x read once and y written once; operations: one sequential
+   pass in f64, IIR_OPS a sample and section).
 6. Bench config6 (384 kHz, 768k-tap IR, soft clip, lattice dither to 24
    bits): (a) 4 streams x 1.25 s: the pre-quantizer signal of the f32
    kernel path against the f64 plain path on the card, relative RMS
@@ -108,8 +127,8 @@
    kernel for the blocked EQ and each layer of <= 8 partitions, the
    three f32 frame kernels for any other layer); (b) the f64 twins at
    <= 1e-12 against the same, beside how far the plain path moves under
-   a 1-ulp input change (the f64 output filter's 15-20 Hz biquads: ~4e-13,
-   see staged.py), only f64 frame kernels launched; (c) the
+   a 1-ulp input change (see staged.py), only f64 frame kernels
+   launched; (c) the
    EQ's band cascade at 4 x 95,744 samples (187 blocks of 512, ~2 s):
    eq20 with saturation 0.3, the AGC on, bands in mid, side and left
    only, serial and parallel, `eq_process` in f32 against f64 <= 1e-5
@@ -249,9 +268,13 @@ from convopeq_tpu_torch.models.chain import (
 from convopeq_tpu_torch.models.convolver import stereo_prepare
 from convopeq_tpu_torch.models.gain_planner import EQ_THEN_CONVOLVER
 from convopeq_tpu_torch.models.nuc import FilterSpec
+from convopeq_tpu_torch.models.output_filter import (
+    output_filter_process, output_filter_sections)
 from convopeq_tpu_torch.ops import _build
+from convopeq_tpu_torch.ops.dc_blocker import dc_block, dc_blocker_alphas
 from convopeq_tpu_torch.ops import frame_conv_kernels as fk
 from convopeq_tpu_torch.ops import fused_conv_kernels as fc
+from convopeq_tpu_torch.ops import iir_cascade as ic
 from convopeq_tpu_torch.ops import oversample
 from convopeq_tpu_torch.ops import quantize_kernels as qk
 from convopeq_tpu_torch.ops import softclip as sc
@@ -273,7 +296,8 @@ SOURCES = {"frames_rfft": FRAME_CU, "causal_mac": FRAME_CU,
            "fused_conv": FRAME_CU, "frames_rfft_f64": FRAME_CU,
            "causal_mac_c128": FRAME_CU, "irfft_valid_f64": FRAME_CU,
            "osa_rfft": FRAME_CU,
-           "soft_clip_local2x": "convopeq_tpu_torch/csrc/softclip.cu"}
+           "soft_clip_local2x": "convopeq_tpu_torch/csrc/softclip.cu",
+           "iir_cascade": "convopeq_tpu_torch/csrc/iir_cascade.cu"}
 REPLACES = {
     "frames_rfft": "convopeq_tpu/ops/pallas_gemm_fft.py:335",
     "causal_mac": "convopeq_tpu/ops/pallas_gemm_fft.py:543",
@@ -286,6 +310,9 @@ REPLACES = {
     "osa_rfft": "convopeq_tpu/ops/pallas_gemm_fft.py:133",
     "soft_clip_local2x": "none: XLA fused convopeq_tpu/ops/softclip.py:48 "
                          "on the TPU",
+    "iir_cascade": "none: XLA ops on the TPU (convopeq_tpu/ops/dc_blocker.py "
+                   "dc_block's Toeplitz products, convopeq_tpu/ops/"
+                   "scan_iir.py biquad_df2t_scan's routes)",
 }
 # fused kernel check shapes (C, K, p, P): the prefilter at 60 s, the
 # fused2 near layer at 60 s, the room IR's L1 at 10 s, the largest
@@ -311,7 +338,7 @@ def check(cond, what):
 
 def launches_now():
     return {**fk.launch_counts, **fc.launch_counts, **qk.launch_counts,
-            **sc.launch_counts}
+            **sc.launch_counts, **ic.launch_counts}
 
 
 def reset_launches():
@@ -319,6 +346,7 @@ def reset_launches():
     fc.reset_launch_counts()
     qk.reset_launch_counts()
     sc.reset_launch_counts()
+    ic.reset_launch_counts()
 
 
 def time_ms(fn, reps=7):
@@ -893,6 +921,101 @@ def phase_soft_clip(card):
         del x
         torch.cuda.empty_cache()
     return {**rows["float32"], "f64": rows["float64"]}
+
+
+# IIR cascade check shapes (R, N, dtype, sample rate, cascades):
+# app_48k_psycho's call (64 stereo streams x 60 s at 48 kHz: its two DC
+# blockers and its output filter), master384k_d24's (256 stereo streams
+# x 1.25 s at 384 kHz: its output DC blocker), config3_staged's at its
+# processing rate (4 stereo streams x 10 s at 192 kHz: the 1 Hz DC
+# blocker and the output filter) and an f64 one
+IIR_SHAPES = [(128, 2_880_000, torch.float32, 48000.0,
+               ("dc_block", "eq_last", "conv_last")),
+              (512, 480_000, torch.float32, 384000.0, ("dc_block",)),
+              (8, 1_920_000, torch.float32, 192000.0,
+               ("dc_block_1hz", "conv_last")),
+              (8, 2_880_000, torch.float64, 48000.0, ("eq_last",))]
+IIR_CHECK_ROWS = 16             # rows held to the plain version in f64
+# f64 operations a sample and section of one sequential pass: a TDF2
+# biquad's 5 multiplies and adds (fused or not); the DC pair's 6
+IIR_OPS = {"dc_block": 6, "biquad": 5}
+
+
+# the DC blockers' cutoffs (Hz) by cascade name
+IIR_DC_CUTOFFS = {"dc_block": 3.0, "dc_block_1hz": 1.0}
+
+
+def iir_sections(name, sr):
+    """The cascade `name` of IIR_SHAPES at sample rate sr."""
+    if name in IIR_DC_CUTOFFS:
+        alphas = dc_blocker_alphas(sr, IIR_DC_CUTOFFS[name])
+        return (ic.dc_section(*alphas),)
+    return output_filter_sections(sr, name == "conv_last")
+
+
+def iir_call(name, x, sr):
+    """The program's call of cascade `name`: `dc_block` or
+    `output_filter_process`."""
+    if name in IIR_DC_CUTOFFS:
+        return dc_block(x, sr, IIR_DC_CUTOFFS[name])[0]
+    return output_filter_process(x, sr, name == "conv_last")
+
+
+def phase_iir_cascade(card):
+    """5c: the kernel against its plain version and the FFT form at
+    IIR_SHAPES; returns app's output-filter row, the other rows under
+    their names."""
+    dev = resolve_device("cuda")        # TF32 off for the plain version
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows = {}
+    for R, N, dt, sr, names in IIR_SHAPES:
+        x = torch.randn((R, N), generator=gen, device=dev, dtype=dt) * 0.25
+        f32 = dt == torch.float32
+        for name in names:
+            sections = iir_sections(name, sr)
+            ic.reset_launch_counts()
+            y = iir_call(name, x, sr)
+            torch.cuda.synchronize()
+            check(ic.launch_counts["iir_cascade"] == 1,
+                  f"iir {name} {R}x{N}: one launch ({ic.launch_counts})")
+            xs = x[:IIR_CHECK_ROWS].double()
+            yc = y[:IIR_CHECK_ROWS].double()
+            ref, _ = ic.iir_cascade_plain(xs, sections)
+            err = parity.rel_rms(yc, ref)
+            del ref
+            err_fft = parity.rel_rms(yc, ic.iir_cascade_fft(xs, sections))
+            tol, tol_fft = (1e-6, 1e-6) if f32 else (1e-9, 1e-12)
+            what = (f"rel RMS vs the plain version in f64 {err:.3e} (tol "
+                    f"{tol:g}), vs the FFT form in f64 {err_fft:.3e} (tol "
+                    f"{tol_fft:g}), {IIR_CHECK_ROWS} rows")
+            ok = err <= tol and err_fft <= tol_fft
+            finite = bool(torch.isfinite(y).all())
+            del y, xs, yc
+            kernel_ms = time_ms(lambda: iir_call(name, x, sr))
+            plain_ms = time_ms(lambda: ic.iir_cascade_plain(x, sections),
+                               reps=3)
+            nbytes = 2 * R * N * x.element_size()
+            ops = R * N * sum(IIR_OPS["dc_block" if s.kind == "dc"
+                                      else "biquad"] for s in sections)
+            least, by = bound(nbytes, ops, F64_OPS_S)
+            label = f"{name}_{sr / 1000:g}k_{str(dt)[6:]}"
+            print(f"iir_cascade {label} {R}x{N}: {what}, finite {finite}; "
+                  f"kernel {kernel_ms:.3f} ms, bound {least:.3f} ms ({by}; "
+                  f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP f64), "
+                  f"{100 * least / kernel_ms:.1f}% of it; plain "
+                  f"({len(sections)} section(s), GEMMs and scans) "
+                  f"{plain_ms:.3f} ms [{card}]")
+            check(ok and finite,
+                  f"iir {label} matches the plain version and the FFT form")
+            rows[label] = {"shape": [R, N], "error": err,
+                           "error_fft": err_fft, "kernel_ms": kernel_ms,
+                           "bound_ms": least, "bound_by": by,
+                           "plain_ms": plain_ms}
+            torch.cuda.empty_cache()
+        del x
+        torch.cuda.empty_cache()
+    main = rows.pop("eq_last_48k_float32")
+    return {**main, **rows}
 
 
 def ladder_bound_lsb(k9):
@@ -2520,6 +2643,7 @@ def main():
     headline_rtf = phase_headline(card)
     rows["error_feedback_quantize"] = phase_quantizer(card)
     rows["soft_clip_local2x"] = phase_soft_clip(card)
+    rows["iir_cascade"] = phase_iir_cascade(card)
     config6_launches = phase_config6(card)
     by_path = {"config6": config6_launches}
     by_path["prefilter"], _ = phase_prefilter(card)
@@ -2542,6 +2666,7 @@ def main():
     launches = {**by_path["prefilter"], "error_feedback_quantize":
                 config6_launches["error_feedback_quantize"],
                 "soft_clip_local2x": config6_launches["soft_clip_local2x"],
+                "iir_cascade": config6_launches["iir_cascade"],
                 **{n: f64[n] for n in fk.F64_KERNELS},
                 "osa_rfft": by_path["serve_folded"]["osa_rfft"]}
     print(json.dumps({"kernels": [

@@ -116,6 +116,12 @@ class ChainConfig:
     eq_method: str = "auto"
 
 
+def _iir_route(frame_mac: str) -> str:
+    """The DC blockers' and the output filter's route (ops/iir_cascade.py)
+    for a chain run with frame_mac: the FFT form on the plain path."""
+    return "fft" if frame_mac == "plain" else "auto"
+
+
 def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
                   conv_state: StereoConvolverState | None = None,
                   mix_ramp=None, frame_mac="auto"):
@@ -125,9 +131,11 @@ def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
     processing rate, which overrides cfg.wet_dry_mix (see
     `convolver.linear_mix_ramp`).  frame_mac passes through to the
     convolver's partitioned convolutions ("plain": the plain frame steps
-    on any device).  Spans (`runtime.telemetry.span`), with the folded
-    chains' names where the stage is the same: "chain" around
-    "chain.sanitize", "chain.dc_block" (each DC blocker),
+    on any device, and the DC blockers and the output filter in their FFT
+    form, ops/iir_cascade.py `iir_cascade_fft`).  Spans
+    (`runtime.telemetry.span`), with the folded chains' names where the
+    stage is the same: "chain" around "chain.sanitize", "chain.dc_block"
+    (each DC blocker),
     "chain.oversample" (the up and the down cascade), "chain.eq" (the
     bands and the AGC), "chain.conv" (the trim gain, the stereo NUC and
     the wet gain), "chain.output_filter", "chain.post" (each scalar gain
@@ -136,6 +144,7 @@ def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
     os_factor = resolve_oversampling_factor(cfg.oversampling_factor, sr)
     proc_rate = sr * os_factor
     dev = x.device
+    iir = _iir_route(frame_mac)
     with span("chain", dev):
         with span("chain.sanitize", dev):
             x = _sanitize(x)
@@ -143,14 +152,14 @@ def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
             with span("chain.post", dev):
                 x = x * cfg.input_headroom_gain
         with span("chain.dc_block", dev):
-            x, _ = dc_block(x, sr, 3.0)
+            x, _ = dc_block(x, sr, 3.0, route=iir)
         stages = (make_stages(os_factor, cfg.oversampling_preset)
                   if os_factor > 1 else [])
         if stages:
             with span("chain.oversample", dev):
                 x = oversample_up(x, stages)
             with span("chain.dc_block", dev):
-                x, _ = dc_block(x, proc_rate, 1.0)
+                x, _ = dc_block(x, proc_rate, 1.0, route=iir)
         conv_active = (not cfg.conv_bypassed) and conv_state is not None
         eq_active = (not cfg.eq_bypassed) and eq_params is not None
 
@@ -183,7 +192,7 @@ def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
             with span("chain.output_filter", dev):
                 x = output_filter_process(x, proc_rate, conv_is_last,
                                           cfg.conv_hc_mode, cfg.conv_lc_mode,
-                                          cfg.eq_lpf_mode)
+                                          cfg.eq_lpf_mode, iir)
         if cfg.output_makeup_gain != 1.0:
             with span("chain.post", dev):
                 x = x * cfg.output_makeup_gain
@@ -195,7 +204,7 @@ def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
             with span("chain.oversample", dev):
                 x = oversample_down(x, stages)
         with span("chain.dc_block", dev):
-            x, _ = dc_block(x, sr, 3.0)
+            x, _ = dc_block(x, sr, 3.0, route=iir)
         if cfg.apply_output_headroom:
             with span("chain.post", dev):
                 x = x * K_OUTPUT_HEADROOM
@@ -713,7 +722,9 @@ def process_chain_semi_fused(x, cfg: ChainConfig,
     pre-gains -> folded NUC (dc_in + EQ + conv + output filter) -> makeup
     -> local 2x soft clip -> output DC blocker -> headroom, the staged
     chain's order (the soft clip and the output DC blocker do not commute
-    with the fold).  `frame_mac` passes through to the convolution.
+    with the fold).  `frame_mac` passes through to the convolution
+    ("plain" also runs the output DC blocker in its FFT form, as
+    `process_chain`).
     Spans: "chain" around "chain.sanitize", "chain.conv", "chain.post"
     (each scalar gain), "chain.soft_clip" and "chain.dc_block"."""
     if resolve_oversampling_factor(cfg.oversampling_factor,
@@ -732,7 +743,8 @@ def process_chain_semi_fused(x, cfg: ChainConfig,
         with span("chain.soft_clip", dev):
             y = soft_clip_local2x(y, *soft_clip_params(cfg.saturation_amount))
         with span("chain.dc_block", dev):
-            y, _ = dc_block(y, cfg.sample_rate, 3.0)
+            y, _ = dc_block(y, cfg.sample_rate, 3.0,
+                            route=_iir_route(frame_mac))
         if cfg.apply_output_headroom:
             with span("chain.post", dev):
                 y = y * K_OUTPUT_HEADROOM

@@ -5,14 +5,17 @@ Two mutually-exclusive chains, each 3 cascaded RBJ biquads:
 - convolver-last: HC stage0 -> HC stage1 -> LC
 - EQ-last: HPF (Butt-2, 20 Hz) -> LP stage0 -> LP stage1
 Coefficients host NumPy f64 (makeLPF/makeHPF, OutputFilter.cpp:25-73);
-`output_filter_process` runs the cascade on the signal's device, each
-biquad through `biquad_df2t_scan`'s "auto" route (JAX :77-100).
+`output_filter_process` runs the cascade's non-identity biquads as one
+cascade of ops/iir_cascade.py: on the CPU each biquad through
+`biquad_df2t_scan`'s "auto" route (JAX :77-100), on the card one launch
+of the IIR cascade kernel; with route "fft", the cascade's FFT form on
+any device (the plain path's reference).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from ..ops.scan_iir import biquad_df2t_scan
+from ..ops.iir_cascade import biquad_section, iir_cascade
 
 HC_SHARP, HC_NATURAL, HC_SOFT = 0, 1, 2
 LC_NATURAL, LC_SOFT = 0, 1
@@ -69,18 +72,12 @@ def output_filter_coeffs(sample_rate: float):
     return {"hc": hc, "lc": lc, "hpf": hpf, "lp": lp}
 
 
-def _biquad(x, c):
-    if tuple(c) == IDENTITY:
-        return x
-    y, _ = biquad_df2t_scan(x, *c)
-    return y
-
-
-def output_filter_process(x, sample_rate: float, conv_is_last: bool,
-                          hc_mode: int = HC_NATURAL, lc_mode: int = LC_NATURAL,
-                          lp_mode: int = HC_NATURAL):
-    """process() (OutputFilter.cpp:200+): the 3-biquad cascade of the
-    static modes from zero state, on x (..., N)."""
+def output_filter_sections(sample_rate: float, conv_is_last: bool,
+                           hc_mode: int = HC_NATURAL,
+                           lc_mode: int = LC_NATURAL,
+                           lp_mode: int = HC_NATURAL):
+    """The cascade's non-identity biquads of the static modes, in order,
+    as sections of ops/iir_cascade.py."""
     coeffs = output_filter_coeffs(sample_rate)
     if conv_is_last:
         stages = (coeffs["hc"][hc_mode][0], coeffs["hc"][hc_mode][1],
@@ -88,6 +85,18 @@ def output_filter_process(x, sample_rate: float, conv_is_last: bool,
     else:
         stages = (coeffs["hpf"], coeffs["lp"][lp_mode][0],
                   coeffs["lp"][lp_mode][1])
-    for c in stages:
-        x = _biquad(x, c)
-    return x
+    return tuple(biquad_section(*c) for c in stages if tuple(c) != IDENTITY)
+
+
+def output_filter_process(x, sample_rate: float, conv_is_last: bool,
+                          hc_mode: int = HC_NATURAL, lc_mode: int = LC_NATURAL,
+                          lp_mode: int = HC_NATURAL, route: str = "auto"):
+    """process() (OutputFilter.cpp:200+): the 3-biquad cascade of the
+    static modes from zero state, on x (..., N); route as
+    `iir_cascade`'s."""
+    sections = output_filter_sections(sample_rate, conv_is_last, hc_mode,
+                                      lc_mode, lp_mode)
+    if not sections:
+        return x
+    y, _ = iir_cascade(x, sections, route=route)
+    return y

@@ -52,6 +52,7 @@ class Library:
 _EFQ_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _DP, _I, _D, _D, _P]
 _EFQ_ROWS_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _D, _D, _P]
 _SC_ARGS = [_P, _P, _I, _I, _DP, _D, _D, _D, _P]
+_IIR_ARGS = [_P, _P, _I, _I, _I, _I, _I, _DP, _P, _P, _P, _P, _P]
 
 LIBRARIES = {
     "frame_conv": Library(
@@ -80,6 +81,11 @@ LIBRARIES = {
         "softclip", _PKG / "csrc" / "softclip.cu", NVCC_FLAGS, {
             "soft_clip_local2x_f32": _SC_ARGS,
             "soft_clip_local2x_f64": _SC_ARGS,
+        }),
+    "iir_cascade": Library(
+        "iir_cascade", _PKG / "csrc" / "iir_cascade.cu", NVCC_FLAGS, {
+            "iir_cascade_f32": _IIR_ARGS,
+            "iir_cascade_f64": _IIR_ARGS,
         }),
 }
 

@@ -12,8 +12,9 @@ batch, and the card's name and power limit.  With --profile, after each
 line, the device time of one call by kernel (`headline.profile_call`).
 
 The plain path runs the plain frame steps (`frame_mac="plain"`: cuFFT
-D2Z / Z2D through torch.fft and the plain MAC), an implementation of its
-own; the dithered lines quantize its output with the same uniforms
+D2Z / Z2D through torch.fft and the plain MAC) and the DC blockers in
+their FFT form (ops/iir_cascade.py `iir_cascade_fft`), an implementation
+of its own; the dithered lines quantize its output with the same uniforms
 through the quantizer kernel, which is bit-identical to its plain
 version.  The JAX package compares against a JAX f64 CPU golden; that
 comparison is made on the CPU by tests/test_torch_f64_tier.py.

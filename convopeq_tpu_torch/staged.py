@@ -11,10 +11,11 @@ each fenced by torch.cuda.synchronize(), and the spread), the peak
 device memory of the timed calls, the relative RMS at FIDELITY_SHAPE
 against the port's f64 plain path on the same card and input
 (`frame_mac="plain"`: cuFFT D2Z / Z2D through torch.fft and the plain
-MAC; the f64 EQ and output filter have no kernel), its limit, the
-kernel launches of the fidelity run, and the card's name and power
-limit.  With --profile, after each line, the device time of one call by
-kernel (`headline.profile_call`).
+MAC, the DC blockers and the output filter in their FFT form,
+ops/iir_cascade.py `iir_cascade_fft`; the f64 EQ has no kernel), its
+limit, the kernel launches of the fidelity run, and the card's name and
+power limit.  With --profile, after each line, the device time of one
+call by kernel (`headline.profile_call`).
 
 The lines (bench.py:160-252, 48 kHz; the IRs drawn from
 np.random.default_rng(0) in bench_all's order, the draws of its input
@@ -44,16 +45,19 @@ Limits: f32 lines 2e-3 relative RMS, the JAX package's f32 bound for the
 staged chain (tests/test_precision.py:48-90: the 18 Hz and 20 Hz
 output-filter biquads, pole radius 0.998, hold any f32 realization to
 ~4e-4); the f64 twins 1e-12.  The same biquads set how far under it
-the f64 lines sit: on the f64 2x2 route (the JAX package's CPU rule,
-which the port follows) they carry ~6e-11 of rounding against the exact
-recurrence, and a difference of one ulp in their input, such as the
-frame kernels' against cuFFT's, moves their output by ~4e-13 relative
-(`ulp_floor`, printed beside each f64 line's fidelity).  config3_staged
-keeps both limits: its f32 limit is the larger of 2e-3 and 1.5x the JAX
-package's own f32 error for this chain on the CPU, and that is 2e-3
-(PERF.md, the f32 floor at 192 kHz: the output filter's 18 Hz high-pass
-there, pole radius ~0.9995, holds f32 to ~1e-3); its f64 line sits at
-its 1-ulp floor, ~6e-13 at 192 kHz.
+the f64 lines sit.  The f64 twins run them through the IIR cascade
+kernel, ~1e-14 from the recurrence run in long double at 48 kHz and up
+to ~1e-13 at 192 kHz, and the plain path through the FFT form, ~1e-15 from
+it, two forms that share nothing; the JAX package's f64 2x2 route,
+which the CPU route keeps, carries ~7e-11 at 48 kHz and ~5e-9 at
+192 kHz, too much for the twins' limit (tests/test_torch_iir_cascade.py
+holds both forms to the long-double recurrence).  `ulp_floor`, printed
+beside each f64 line's fidelity, is how far the plain path moves under
+a one-ulp change of the input.  config3_staged keeps both limits: its
+f32 limit is the larger of 2e-3 and 1.5x the JAX package's own f32
+error for this chain on the CPU, and that is 2e-3 (PERF.md, the f32
+floor at 192 kHz: the output filter's 18 Hz high-pass there, pole
+radius ~0.9995, holds f32 to ~1e-3).
 """
 from __future__ import annotations
 
@@ -79,6 +83,7 @@ from .models.metering import spectrum_frames
 from .models.nuc import TAIL_BYPASS, FilterSpec
 from .ops import frame_conv_kernels as fk
 from .ops import fused_conv_kernels as fc
+from .ops import iir_cascade as ic
 from .ops import quantize_kernels as qk
 from .parity import rel_rms
 
@@ -268,13 +273,15 @@ def signal(batch: int, seconds: float, device="cuda", dtype=torch.float32,
 
 
 def launch_counts() -> dict:
-    return {**fk.launch_counts, **fc.launch_counts, **qk.launch_counts}
+    return {**fk.launch_counts, **fc.launch_counts, **qk.launch_counts,
+            **ic.launch_counts}
 
 
 def reset_launch_counts() -> None:
     fk.reset_launch_counts()
     fc.reset_launch_counts()
     qk.reset_launch_counts()
+    ic.reset_launch_counts()
 
 
 def fidelity(line: Line, reference: Line, x) -> tuple:

@@ -382,7 +382,7 @@ def test_engine_ir_load_is_a_setup_span():
 
 
 @pytest.mark.parametrize("name", ["frame_conv", "error_feedback_quantize",
-                                  "softclip"])
+                                  "softclip", "iir_cascade"])
 def test_library_load_is_a_setup_span(monkeypatch, name):
     """`ops/_build.load`'s first call of a library is one "setup.build"
     call; later calls add nothing (nvcc and the binding faked: no CUDA
