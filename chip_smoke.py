@@ -78,9 +78,8 @@
    quantizer's share of the call.
 7. The fused P <= 8 kernel against its plain version on the card at the
    shapes of the paths (C = 8; p = 8192, P = 8, K = 352: the
-   prefilter at 60 s; p = 16384, P = 8, K = 176: the fused2 near layer;
-   p = 4096, P = 5, K = 118: the room IR's L1 at 10 s; p = 65536, P = 8;
-   p = 2048, P = 4, K = 469: the staged chain's blocked EQ at 20 s,
+   prefilter at 60 s; p = 4096, P = 5, K = 118: the room IR's L1 at
+   10 s; p = 65536, P = 8; p = 2048, P = 4, K = 469: the staged chain's blocked EQ at 20 s,
    bench_all's 4 streams; p = 8192, P = 4, K = 235: config3_staged's EQ
    at 192 kHz, 4 streams x 10 s): max |diff| <=
    1e-4 x max |plain| (tests/test_pallas.py's bound for the TPU kernel),
@@ -101,10 +100,7 @@
    the three frame kernels launched; (b) 64 x 60 s: realtime factor,
    spread, peak memory, and the device time of the prefilter pass and of
    each NUC layer (CUDA events).
-9. The headline with partition="fused2" (near 16384 x 8 on the fused
-   kernel, far 65536 x 15): (a) 4 x 10 s fidelity as in 8a, the fused
-   kernel launched; (b) the realtime factor at 64 x 60 s beside the
-   single-layer headline's of phase 4.
+9. (None: the two-level folded plan it ran is not ported.)
 10. The room-correction convolver (24,000-tap IR, 32 direct taps,
    512 x 12 and 4096 x 5, spectrum filter on, mix 0.7 ramped from 1.0
    over 0.1 s): (a) 4 x 10 s fidelity as in 8a, the fused kernel
@@ -270,7 +266,7 @@ from convopeq_tpu_torch.models.gain_planner import EQ_THEN_CONVOLVER
 from convopeq_tpu_torch.models.nuc import FilterSpec
 from convopeq_tpu_torch.models.output_filter import (
     output_filter_process, output_filter_sections)
-from convopeq_tpu_torch.ops import _build
+from convopeq_tpu_torch.ops import _build, dispatch
 from convopeq_tpu_torch.ops.dc_blocker import dc_block, dc_blocker_alphas
 from convopeq_tpu_torch.ops import frame_conv_kernels as fk
 from convopeq_tpu_torch.ops import fused_conv_kernels as fc
@@ -315,12 +311,12 @@ REPLACES = {
                    "scan_iir.py biquad_df2t_scan's routes)",
 }
 # fused kernel check shapes (C, K, p, P): the prefilter at 60 s, the
-# fused2 near layer at 60 s, the room IR's L1 at 10 s, the largest
-# partition the kernel takes (its row pass at 256 threads a block), the
-# staged chain's blocked EQ (eq20: tail 7,903 taps) at 20 s, and
-# config3_staged's EQ at 192 kHz (tail 31,612 taps) at 10 s
-FUSED_SHAPES = [(8, 352, 8192, 8), (8, 176, 16384, 8), (8, 118, 4096, 5),
-                (8, 44, 65536, 8), (8, 469, 2048, 4), (8, 235, 8192, 4)]
+# room IR's L1 at 10 s, the largest partition the kernel takes (its row
+# pass at 256 threads a block), the staged chain's blocked EQ (eq20: tail
+# 7,903 taps) at 20 s, and config3_staged's EQ at 192 kHz (tail 31,612
+# taps) at 10 s
+FUSED_SHAPES = [(8, 352, 8192, 8), (8, 118, 4096, 5), (8, 44, 65536, 8),
+                (8, 469, 2048, 4), (8, 235, 8192, 4)]
 # frame kernel check shapes (p, P) of the oversampled lines: the staged
 # NUC's layers at block 2048 (config3_staged) and config3's folded layer
 LAYER_SHAPES = [(2048, 12), (8192, 43), (16384, 23)]
@@ -334,19 +330,6 @@ F64_OPS_S = 34e12
 def check(cond, what):
     if not cond:
         raise SystemExit(f"FAILED: {what}")
-
-
-def launches_now():
-    return {**fk.launch_counts, **fc.launch_counts, **qk.launch_counts,
-            **sc.launch_counts, **ic.launch_counts}
-
-
-def reset_launches():
-    fk.reset_launch_counts()
-    fc.reset_launch_counts()
-    qk.reset_launch_counts()
-    sc.reset_launch_counts()
-    ic.reset_launch_counts()
 
 
 def time_ms(fn, reps=7):
@@ -549,11 +532,11 @@ def phase_self_check(card):
     frames = torch.randn((C, K, P_SIZE), generator=gen, device=dev)
     osa = torch.cat([torch.cat([torch.zeros_like(frames[:, :1]),
                                 frames[:, :-1]], dim=1), frames], dim=-1)
-    reset_launches()
+    dispatch.reset_launches()
     X = fk.osa_rfft(osa)
     total = float(fk.irfft_valid(X).sum())
     torch.cuda.synchronize()
-    launches = launches_now()
+    launches = dispatch.launches()
     ref = fk.osa_rfft_plain(osa)
     scale = float(ref.abs().max())
     err = float((X - ref).abs().max())
@@ -633,12 +616,12 @@ def phase_headline(card):
 
     # (a) fidelity against the plain path in f64, counting launches
     x = headline.headline_input(4, 10.0, "cuda")
-    fk.reset_launch_counts()
-    qk.reset_launch_counts()
+    dispatch.reset_launches()
     y32 = chain32(x)
     torch.cuda.synchronize()
-    launches = {**fk.launch_counts, **qk.launch_counts}
-    y64 = chain64(x.double(), frame_mac="plain")
+    launches = dispatch.launches()
+    with dispatch.plain():
+        y64 = chain64(x.double())
     rel = float(((y32.double() - y64).pow(2).mean()
                  / y64.pow(2).mean()).sqrt())
     finite = bool(torch.isfinite(y32).all())
@@ -879,7 +862,7 @@ def phase_soft_clip(card):
     rows = {}
     for R, N, dt in SOFT_CLIP_SHAPES:
         x = torch.randn((R, N), generator=gen, device=dev, dtype=dt) * 0.4
-        sc.reset_launch_counts()
+        dispatch.reset_launches()
         y = sc.soft_clip_local2x(x, *params)
         torch.cuda.synchronize()
         check(sc.launch_counts["soft_clip_local2x"] == 1,
@@ -973,7 +956,7 @@ def phase_iir_cascade(card):
         f32 = dt == torch.float32
         for name in names:
             sections = iir_sections(name, sr)
-            ic.reset_launch_counts()
+            dispatch.reset_launches()
             y = iir_call(name, x, sr)
             torch.cuda.synchronize()
             check(ic.launch_counts["iir_cascade"] == 1,
@@ -1039,12 +1022,13 @@ def phase_config6(card):
     # (a) 4 streams: pre-quantizer fidelity, the dithered output, launches
     x = config6.config6_input(4, config6.SECONDS, "cuda")
     gen = torch.Generator(device=x.device).manual_seed(8)
-    reset_launches()
+    dispatch.reset_launches()
     y32 = chain32(x)
     q = config6.dither(y32, k9, gen)
     torch.cuda.synchronize()
-    launches = launches_now()
-    y64 = chain64(x.double(), frame_mac="plain")
+    launches = dispatch.launches()
+    with dispatch.plain():
+        y64 = chain64(x.double())
     rel = float(((y32.double() - y64).pow(2).mean()
                  / y64.pow(2).mean()).sqrt())
     print(f"config6 pre-quantizer 4x{config6.SECONDS:g}s f32 kernels vs f64 "
@@ -1152,11 +1136,12 @@ def fidelity(name, run32, run64, x, card, must_launch):
     after, then run64(x in f64) on the plain path; checks the relative
     RMS, the shape, finiteness and that every kernel in `must_launch`
     was launched.  Returns the counts."""
-    reset_launches()
+    dispatch.reset_launches()
     y32 = run32(x)
     torch.cuda.synchronize()
-    launches = launches_now()
-    y64 = run64(x.double())
+    launches = dispatch.launches()
+    with dispatch.plain():
+        y64 = run64(x.double())
     rel = float(((y32.double() - y64).pow(2).mean()
                  / y64.pow(2).mean()).sqrt())
     finite = bool(torch.isfinite(y32).all())
@@ -1181,8 +1166,8 @@ def phase_prefilter(card):
           f"{chain32.prefilter_spectra.shape[0]}; NUC {plan} [{card}]")
     x = headline.headline_input(4, 10.0, "cuda")
     launches = fidelity(
-        "prefilter chain", chain32, lambda v: chain64(v, frame_mac="plain"),
-        x, card, ["fused_conv", "frames_rfft", "causal_mac", "irfft_valid"])
+        "prefilter chain", chain32, chain64, x, card,
+        ["fused_conv", "frames_rfft", "causal_mac", "irfft_valid"])
     del x, chain64
 
     batch, seconds = 64, 60.0
@@ -1229,33 +1214,6 @@ def phase_prefilter(card):
     return launches, rtf
 
 
-def phase_fused2(card, headline_rtf):
-    t0 = time.perf_counter()
-    chain32 = headline.headline_chain("cuda", torch.float32,
-                                      partition="fused2")
-    chain64 = headline.headline_chain("cuda", torch.float64,
-                                      partition="fused2")
-    plan = [(lp.part_size, lp.num_parts)
-            for lp in chain32.convolver.plans[0].layers]
-    print(f"fused2 headline prepare (host fold, x2): "
-          f"{time.perf_counter() - t0:.2f} s; layers {plan} [{card}]")
-    x = headline.headline_input(4, 10.0, "cuda")
-    launches = fidelity(
-        "fused2 headline", chain32, lambda v: chain64(v, frame_mac="plain"),
-        x, card, ["fused_conv", "frames_rfft", "causal_mac", "irfft_valid"])
-    del x, chain64
-    batch, seconds = 64, 60.0
-    x = headline.headline_input(batch, seconds, "cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    walls = headline.measure(chain32, x, reps=3)
-    peak = torch.cuda.max_memory_allocated()
-    rtf = report_rtf("fused2 headline", batch, seconds, walls, peak, card)
-    print(f"fused2 headline RTF {rtf:.1f} beside the single-layer folded "
-          f"headline's {headline_rtf:.1f} (this run) [{card}]")
-    return launches
-
-
 def phase_roomcorr(card):
     conv32 = nuc3.roomcorr_convolver("cuda", torch.float32)
     conv64 = nuc3.roomcorr_convolver("cuda", torch.float64)
@@ -1268,8 +1226,8 @@ def phase_roomcorr(card):
     launches = fidelity(
         "room-correction convolver",
         lambda v: nuc3.roomcorr_process(conv32, v),
-        lambda v: nuc3.roomcorr_process(conv64, v, frame_mac="plain"), x,
-        card, ["fused_conv", "frames_rfft", "causal_mac", "irfft_valid"])
+        lambda v: nuc3.roomcorr_process(conv64, v), x, card,
+        ["fused_conv", "frames_rfft", "causal_mac", "irfft_valid"])
     del x, conv64
     batch, seconds = 256, 10.0
     x = headline.headline_input(batch, seconds, "cuda")
@@ -1291,11 +1249,12 @@ def phase_parity(card):
         line = parity.make_line(name)
         prep = time.perf_counter() - t0
         x, u = parity.fidelity_signal(line)
-        reset_launches()
+        dispatch.reset_launches()
         y, q = line.run(x, u)
         torch.cuda.synchronize()
-        launches = launches_now()
-        y_ref, q_ref = line.run(x, u, frame_mac="plain")
+        launches = dispatch.launches()
+        with dispatch.plain():
+            y_ref, q_ref = line.run(x, u)
         out = line.compared(y, q)
         rel = parity.rel_rms(out, line.compared(y_ref, q_ref))
         finite = bool(torch.isfinite(out).all())
@@ -1653,11 +1612,12 @@ def phase_config3_staged(card):
     clip32 = StagedChain(cfg, line.chain.eq_params, line.chain.convolver.state)
     clip64 = StagedChain(cfg, twin.chain.eq_params, twin.chain.convolver.state)
     x = staged.signal(4, 2.0, "cuda")
-    reset_launches()
+    dispatch.reset_launches()
     y = clip32(x)
     torch.cuda.synchronize()
-    launches = launches_now()
-    rel = parity.rel_rms(y, clip64(x.double(), frame_mac="plain"))
+    launches = dispatch.launches()
+    with dispatch.plain():
+        rel = parity.rel_rms(y, clip64(x.double()))
     finite = bool(torch.isfinite(y).all())
     print(f"config3_staged with the soft clip at 4x (saturation 0.3) 4x2s "
           f"f32 kernels vs f64 plain: rel RMS {rel:.3e} (tol "
@@ -1705,9 +1665,9 @@ def phase_serving_fidelity(card, fixture, cache):
     plain path; returns the f32 and f64 3-layer tiers' counts."""
     counts = {}
     t0 = time.perf_counter()
-    reset_launches()
+    dispatch.reset_launches()
     for row in serve.fidelity(FOLDED_TIERS, 10.0, "cuda", fixture, cache):
-        launches = {**launches_now(), **row["launches"]}
+        launches = {**dispatch.launches(), **row["launches"]}
         _, dtype, fdl, _ = serve.TIERS[row["tier"]]
         print(f"serve {row['tier']} 1x{row['seconds']:g}s streamed vs the "
               f"f64 offline folded chain (plain path), past "
@@ -1735,10 +1695,10 @@ def phase_serving_staged(card, fixture):
             (torch.float32, 1, STAGED_SECONDS, False, 2e-3),
             (torch.float64, 1, STAGED_SECONDS, False, 1e-9),
             (torch.float64, 4, STAGED_SECONDS, True, 1e-7)):
-        reset_launches()
+        dispatch.reset_launches()
         row, fk_counts = serve.staged_fidelity(dtype, os_factor, seconds,
                                                "cuda", fixture, clip)
-        launches = {**launches_now(), **fk_counts}
+        launches = {**dispatch.launches(), **fk_counts}
         print(f"serve staged step {row['dtype']} at {os_factor}x (soft clip "
               f"{clip}) 1x{row['seconds']:g}s vs offline process_chain f64 "
               f"plain: rel RMS {row['rel_rms']:.3e} (tol {limit:g}), finite "
@@ -1921,9 +1881,9 @@ def app_eq_flags():
 
 def app_plain(eng64, x):
     """The f64 plain path of the engine's chain on x (dither off)."""
-    return process_chain(x.double(), eng64._effective_config(),
-                         eng64.eq_params, eng64._conv_state,
-                         frame_mac="plain")
+    with dispatch.plain():
+        y, _ = eng64.process(x, return_chain_output=True)
+    return y
 
 
 def app_on_grid(y, bits=24):
@@ -1984,10 +1944,10 @@ def phase_app_fidelity(card, eng32, eng64):
         del y
     for eng, dt in ((eng32, torch.float32), (eng64, torch.float64)):
         eng.set_dither(dither.PSYCHOACOUSTIC, 24)
-        reset_launches()
+        dispatch.reset_launches()
         yd = eng.process(x)
         torch.cuda.synchronize()
-        counts[dt] = launches_now()
+        counts[dt] = dispatch.launches()
         must = APP_KERNELS[dt]
         print(f"15b engine {str(dt)[6:]} dithered: on the 24-bit grid "
               f"{app_on_grid(yd)}, launches {counts[dt]} (must: {must}) "
@@ -2081,8 +2041,8 @@ def phase_app_streaming(card, eng32, eng64):
         torch.from_numpy(eng64._ir_prepared), headline.BLOCK_SIZE,
         eng64.filter_spec, cfg, eng64.eq_params, dtype=torch.float64,
         partition=None, device="cuda")
-    refs = {"folded": process_chain_fused(x.double(), cfg, folded,
-                                          frame_mac="plain")}
+    with dispatch.plain():
+        refs = {"folded": process_chain_fused(x.double(), cfg, folded)}
     del folded
     for eng in (eng32, eng64):
         eng.set_soft_clip(True, 0.3)
@@ -2091,10 +2051,10 @@ def phase_app_streaming(card, eng32, eng64):
     for name, tol in (("folded", 2e-5), ("staged", 2e-3)):
         eng32.set_soft_clip(name == "staged", 0.3)
         ref = refs[name]
-        reset_launches()
+        dispatch.reset_launches()
         y, _ = eng32.process_streaming(x, folded=name == "folded")
         torch.cuda.synchronize()
-        counts[name] = launches_now()
+        counts[name] = dispatch.launches()
         walls = eng32.last_stream_walls
         rel = float(((y.double() - ref).pow(2).mean()
                      / ref.pow(2).mean()).sqrt())
@@ -2330,9 +2290,9 @@ def phase_native_points(card, fixture, folded):
     for tier, ns, nwin in serve.NATIVE_POINTS:
         chain = folded if tier == "folded" else serve.build_chain(
             tier, "cuda", fixture)
-        reset_launches()
+        dispatch.reset_launches()
         row = serve.native_point(chain, ns, nwin, tier=tier)
-        launches = launches_now()
+        launches = dispatch.launches()
         if tier == "folded" and ns == 32:
             counts = launches
         print(f"16b native {tier} x{ns}: {row['windows_served']} windows of "
@@ -2459,7 +2419,7 @@ def phase_learner(card):
             return errs
 
         learner.simulate_shaper_error_population = recording
-        reset_launches()
+        dispatch.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
@@ -2467,7 +2427,7 @@ def phase_learner(card):
         finally:
             learner.simulate_shaper_error_population = simulate
         wall = time.perf_counter() - t0
-        launches = launches_now()
+        launches = dispatch.launches()
         counts = launches if counts is None else {
             k: counts[k] + launches[k] for k in counts}
         check(launches["error_feedback_quantize"] == 1,
@@ -2545,7 +2505,7 @@ def phase_live_learning(card, tmp):
 
     stream(1)                                        # build, first launches
     off_walls, off_xruns = stream(6)
-    reset_launches()
+    dispatch.reset_launches()
     eng.start_learning(mode=0)
     t0 = time.perf_counter()
     on_walls, on_xruns, chunks = [], 0, 0
@@ -2563,7 +2523,7 @@ def phase_live_learning(card, tmp):
     finally:
         st = eng.stop_learning(timeout=LIVE_BOUND_S)
     secs = time.perf_counter() - t0
-    launches = launches_now()
+    launches = dispatch.launches()
     events = [e for e in eng.telemetry.events if e.category == "learning"]
     med = (statistics.median(off_walls) * 1e3,
            statistics.median(on_walls) * 1e3)
@@ -2640,14 +2600,13 @@ def main():
     rows["osa_rfft"], self_check = phase_self_check(card)
     rows["fused_conv"] = phase_fused_kernel(card)
     phase_layer_shapes(card)
-    headline_rtf = phase_headline(card)
+    phase_headline(card)
     rows["error_feedback_quantize"] = phase_quantizer(card)
     rows["soft_clip_local2x"] = phase_soft_clip(card)
     rows["iir_cascade"] = phase_iir_cascade(card)
     config6_launches = phase_config6(card)
     by_path = {"config6": config6_launches}
     by_path["prefilter"], _ = phase_prefilter(card)
-    by_path["fused2"] = phase_fused2(card, headline_rtf)
     by_path["roomcorr"] = phase_roomcorr(card)
     by_path.update(phase_parity(card))
     by_path.update(phase_staged(card))

@@ -9,7 +9,7 @@ prints one JSON line for each order (`config3_eq_conv`,
 the realtime factor at RTF_SHAPE (median of 3 calls after a warm-up,
 each fenced by torch.cuda.synchronize(), and the spread), the peak
 device memory, the relative RMS at FIDELITY_SHAPE against the port's f64
-plain path (`frame_mac="plain"`) on the same card and input, its limit,
+plain path (`ops.dispatch.plain()`) on the same card and input, its limit,
 the planner's three gains in dB, the plan (p, P), the kernel launches of
 the fidelity run, and the card's name and power limit.  With --profile,
 after each line, the device time of one call by kernel

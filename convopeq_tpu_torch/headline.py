@@ -49,8 +49,8 @@ def headline_eq() -> EQParams:
 def headline_chain(device="cuda", dtype=torch.float32, ir_len: int = IR_LEN,
                    seed: int = 0, partition="auto") -> FoldedChain:
     """The prepared folded chain (rebuild-time work on the host);
-    `partition` as `prepare_folded_convolver` takes it ("auto": one
-    uniform layer; "fused2": the two-level plan)."""
+    `partition` as `prepare_folded_convolver` takes it ("auto" or an int
+    partition size: one uniform layer; None: the 3-layer plan)."""
     cfg = ChainConfig(sample_rate=SAMPLE_RATE)
     state = prepare_folded_convolver(
         headline_ir(ir_len, seed), BLOCK_SIZE, FilterSpec(SAMPLE_RATE), cfg,

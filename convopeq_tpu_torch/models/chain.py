@@ -31,10 +31,15 @@ commute, so the folded NUC is prepared unfiltered and the HC/LC curve
 goes into the prefilter).
 
 `prepare_folded_convolver` plans the folded IR as one uniform layer
-("auto" or an int partition), as the reference's 3-layer plan with unit
-gains (None), or as the two-level "fused2" plan: a near layer of 8
-partitions, which rides the fused P <= 8 kernel, and a far layer at 8x
-the partition (capped at the frame kernels' largest) for the rest.
+("auto" or an int partition) or as the reference's 3-layer plan with
+unit gains (None).  The JAX package's two-level "fused2" plan is not
+ported: on the H100 it lost to the single uniform layer by 30-40% in
+every run (PERF.md).
+
+Which form of each kernel runs is `ops/dispatch.py`'s: inside
+`dispatch.plain()` every chain here runs its plain path (the plain frame
+steps, the plain soft clip, the DC blockers and the output filter in
+their FFT form), the f64 reference on the card.
 
 `prepare_folded_convolver_oversampled` (JAX :598-775) folds the whole
 oversampled linear chain into one base-rate IR by the polyphase identity
@@ -58,7 +63,6 @@ from torch import nn
 
 from ..ops.dc_blocker import dc_block, dc_blocker_alphas
 from ..ops.frame_conv_kernels import MAX_PART
-from ..ops.fused_conv_kernels import MAX_FUSED_PARTS, fused_conv_supported
 from ..ops.partitioned_conv import partition_spectra, uniform_partitioned_conv
 from ..ops.oversample import (PRESET_IIR_LIKE, _stage_full_response,
                               make_stages, oversample_down, oversample_up)
@@ -116,26 +120,16 @@ class ChainConfig:
     eq_method: str = "auto"
 
 
-def _iir_route(frame_mac: str) -> str:
-    """The DC blockers' and the output filter's route (ops/iir_cascade.py)
-    for a chain run with frame_mac: the FFT form on the plain path."""
-    return "fft" if frame_mac == "plain" else "auto"
-
-
 def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
                   conv_state: StereoConvolverState | None = None,
-                  mix_ramp=None, frame_mac="auto"):
+                  mix_ramp=None):
     """Run the staged chain on x (..., 2, N), time last, on x's device.
 
     mix_ramp: optional per-sample wet/dry mix (N x os_factor,) at the
     processing rate, which overrides cfg.wet_dry_mix (see
-    `convolver.linear_mix_ramp`).  frame_mac passes through to the
-    convolver's partitioned convolutions ("plain": the plain frame steps
-    on any device, and the DC blockers and the output filter in their FFT
-    form, ops/iir_cascade.py `iir_cascade_fft`).  Spans
-    (`runtime.telemetry.span`), with the folded chains' names where the
-    stage is the same: "chain" around "chain.sanitize", "chain.dc_block"
-    (each DC blocker),
+    `convolver.linear_mix_ramp`).  Spans (`runtime.telemetry.span`),
+    with the folded chains' names where the stage is the same: "chain"
+    around "chain.sanitize", "chain.dc_block" (each DC blocker),
     "chain.oversample" (the up and the down cascade), "chain.eq" (the
     bands and the AGC), "chain.conv" (the trim gain, the stereo NUC and
     the wet gain), "chain.output_filter", "chain.post" (each scalar gain
@@ -144,7 +138,6 @@ def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
     os_factor = resolve_oversampling_factor(cfg.oversampling_factor, sr)
     proc_rate = sr * os_factor
     dev = x.device
-    iir = _iir_route(frame_mac)
     with span("chain", dev):
         with span("chain.sanitize", dev):
             x = _sanitize(x)
@@ -152,14 +145,14 @@ def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
             with span("chain.post", dev):
                 x = x * cfg.input_headroom_gain
         with span("chain.dc_block", dev):
-            x, _ = dc_block(x, sr, 3.0, route=iir)
+            x, _ = dc_block(x, sr, 3.0)
         stages = (make_stages(os_factor, cfg.oversampling_preset)
                   if os_factor > 1 else [])
         if stages:
             with span("chain.oversample", dev):
                 x = oversample_up(x, stages)
             with span("chain.dc_block", dev):
-                x, _ = dc_block(x, proc_rate, 1.0, route=iir)
+                x, _ = dc_block(x, proc_rate, 1.0)
         conv_active = (not cfg.conv_bypassed) and conv_state is not None
         eq_active = (not cfg.eq_bypassed) and eq_params is not None
 
@@ -174,7 +167,7 @@ def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
                 if abs(trim - 1.0) > 1e-12:
                     sig = sig * trim
                 return convolver_process(sig, conv_state, cfg.wet_dry_mix,
-                                         frame_mac, mix_ramp)
+                                         mix_ramp)
 
         if cfg.order == CONVOLVER_THEN_EQ:
             if conv_active:
@@ -192,7 +185,7 @@ def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
             with span("chain.output_filter", dev):
                 x = output_filter_process(x, proc_rate, conv_is_last,
                                           cfg.conv_hc_mode, cfg.conv_lc_mode,
-                                          cfg.eq_lpf_mode, iir)
+                                          cfg.eq_lpf_mode)
         if cfg.output_makeup_gain != 1.0:
             with span("chain.post", dev):
                 x = x * cfg.output_makeup_gain
@@ -204,7 +197,7 @@ def process_chain(x, cfg: ChainConfig, eq_params: EQParams | None = None,
             with span("chain.oversample", dev):
                 x = oversample_down(x, stages)
         with span("chain.dc_block", dev):
-            x, _ = dc_block(x, sr, 3.0, route=iir)
+            x, _ = dc_block(x, sr, 3.0)
         if cfg.apply_output_headroom:
             with span("chain.post", dev):
                 x = x * K_OUTPUT_HEADROOM
@@ -225,11 +218,11 @@ class StagedChain(nn.Module):
         self.convolver = (None if conv_state is None
                           else StereoConvolver(conv_state))
 
-    def forward(self, x, frame_mac="auto", mix_ramp=None):
+    def forward(self, x, mix_ramp=None):
         return process_chain(
             x, self.cfg, self.eq_params,
             None if self.convolver is None else self.convolver.state,
-            mix_ramp, frame_mac)
+            mix_ramp)
 
 
 def fused_eligible(cfg: ChainConfig, eq_params: EQParams | None,
@@ -360,15 +353,13 @@ def prepare_fused_prefilter(cfg: ChainConfig, eq_params: EQParams | None,
 
 
 def process_chain_fused(x, cfg: ChainConfig, conv_state: StereoConvolverState,
-                        prefilter=None, frame_mac="auto"):
+                        prefilter=None):
     """The collapsed run-time chain: sanitize -> scalar gains ->
     [prefilter conv] -> NUC -> scalar gains, on x (..., 2, N) with time
     last.  With a `prefilter` (Hg, part_size) from
     `prepare_fused_prefilter`, the NUC is the normal `stereo_prepare`
     state; without one, a state from `prepare_folded_convolver`, which
-    bakes the prefilter into the IR.  `frame_mac` passes through to
-    `uniform_partitioned_conv` ("plain" = the plain frame steps on any
-    device).  Spans (`runtime.telemetry.span`): "chain" around
+    bakes the prefilter into the IR.  Spans (`runtime.telemetry.span`): "chain" around
     "chain.sanitize", "chain.conv" and "chain.post"."""
     dev = x.device
     with span("chain", dev):
@@ -376,9 +367,9 @@ def process_chain_fused(x, cfg: ChainConfig, conv_state: StereoConvolverState,
             x = _sanitize_and_trim(x, cfg)
         if prefilter is not None:
             Hg, pg = prefilter
-            x = uniform_partitioned_conv(x, Hg, pg, frame_mac)
+            x = uniform_partitioned_conv(x, Hg, pg)
         with span("chain.conv", dev):
-            y = convolver_process(x, conv_state, 1.0, frame_mac)
+            y = convolver_process(x, conv_state, 1.0)
         post = cfg.output_makeup_gain * (K_OUTPUT_HEADROOM
                                          if cfg.apply_output_headroom
                                          else 1.0)
@@ -407,7 +398,6 @@ def prepare_folded_convolver(ir, block_size: int, spec, cfg: ChainConfig,
                              dtype=torch.float32, partition="auto",
                              dc_passes: int = 2,
                              fold_spectrum_curve: bool = True,
-                             p_near: int = 16384,
                              device="cuda") -> StereoConvolverState:
     """Fold the LTI prefilter (dc blockers, EQ, output filter, HC/LC
     curve) into the IR on the host in f64, then prepare a NUC of the
@@ -419,15 +409,12 @@ def prepare_folded_convolver(ir, block_size: int, spec, cfg: ChainConfig,
 
     partition: "auto" (`throughput_partition_size`) or an int partition
     size for one uniform layer; None for the reference's 3-layer plan
-    with unit gains; "fused2" for the two-level plan with a near layer of
-    8 partitions at `p_near` (`_prepare_fused2`).  Every choice computes
-    the same linear convolution.  AIR tail mode (per-layer damping)
+    with unit gains.  Every choice computes the same linear
+    convolution.  AIR tail mode (per-layer damping)
     cannot fold and raises."""
     from .nuc import nuc_prepare_uniform, plan_layers
-    if not (partition in ("auto", "fused2", None)
-            or isinstance(partition, int)):
-        raise ValueError(f"partition {partition!r}: 'auto', 'fused2', "
-                         "None or an int")
+    if not (partition in ("auto", None) or isinstance(partition, int)):
+        raise ValueError(f"partition {partition!r}: 'auto', None or an int")
     ir = np.asarray(ir, np.float64)
     if ir.ndim == 1:
         ir = np.stack([ir, ir])
@@ -446,8 +433,6 @@ def prepare_folded_convolver(ir, block_size: int, spec, cfg: ChainConfig,
     combined = np.fft.irfft(np.fft.rfft(h_eff, m) * np.fft.rfft(g, m),
                             m)[:, :ir.shape[-1] + g.shape[0] - 1]
     cj = torch.as_tensor(combined).to(dtype)
-    if partition == "fused2":
-        return _prepare_fused2(cj, block_size, p_near, device)
     if partition is None:
         return stereo_prepare(cj, block_size, spec,
                               apply_spectrum_filter=False,
@@ -458,49 +443,6 @@ def prepare_folded_convolver(ir, block_size: int, spec, cfg: ChainConfig,
     return StereoConvolverState(
         left=nuc_prepare_uniform(cj[0], int(partition), block_size, device),
         right=nuc_prepare_uniform(cj[1], int(partition), block_size, device))
-
-
-def _prepare_fused2(combined, block_size: int, p_near: int = 16384,
-                    device="cuda") -> StereoConvolverState:
-    """Two-level throughput plan (JAX :481-535): a near layer of 8
-    partitions at `p_near`, which runs on the fused kernel, plus a far
-    layer for the rest at 8 x p_near, capped at the frame kernels'
-    MAX_PART (65536: for the 1M-tap headline the same 65536 x 15 far
-    layer that the JAX package picks on the CPU).  One uniform layer at
-    p_near when the IR fits 8 near partitions, and the single-layer auto
-    plan when the fused kernel does not take p_near.  combined: (2, n)
-    CPU tensor in the spectra's dtype."""
-    from .nuc import NUCLayerPlan, NUCPlan, NUCState, nuc_prepare_uniform
-    n = int(combined.shape[-1])
-    near_parts = MAX_FUSED_PARTS
-    near_len = near_parts * p_near
-    if not fused_conv_supported(p_near, near_parts) or n <= near_len:
-        part = (p_near if fused_conv_supported(p_near, near_parts)
-                else throughput_partition_size(
-                    n, f64=(combined.dtype == torch.float64)))
-        return StereoConvolverState(
-            left=nuc_prepare_uniform(combined[0], part, block_size, device),
-            right=nuc_prepare_uniform(combined[1], part, block_size, device))
-    p_far = min(near_parts * p_near, MAX_PART)
-    far_len = n - near_len
-    far_parts = -(-far_len // p_far)
-    layers = (
-        NUCLayerPlan(offset=0, length=near_len, part_size=p_near,
-                     num_parts=near_parts, gain=1.0, damping=None),
-        NUCLayerPlan(offset=near_len, length=far_len, part_size=p_far,
-                     num_parts=far_parts, gain=1.0, damping=None))
-    plan = NUCPlan(layers=layers, direct_taps=0, latency=p_near,
-                   block_size=block_size, ir_len=n)
-
-    def prep(ch):
-        H0 = partition_spectra(ch[:near_len], p_near, near_parts,
-                               dtype=ch.dtype, device=device)
-        H1 = partition_spectra(ch[near_len:], p_far, far_parts,
-                               dtype=ch.dtype, device=device)
-        return NUCState(plan=plan, layer_spectra=[H0, H1])
-
-    return StereoConvolverState(left=prep(combined[0]),
-                                right=prep(combined[1]))
 
 
 def _os_composite_taps(stages, for_up: bool) -> np.ndarray:
@@ -667,9 +609,8 @@ class FoldedChain(nn.Module):
         self.cfg = cfg
         self.convolver = StereoConvolver(conv_state)
 
-    def forward(self, x, frame_mac="auto"):
-        return process_chain_fused(x, self.cfg, self.convolver.state,
-                                   frame_mac=frame_mac)
+    def forward(self, x):
+        return process_chain_fused(x, self.cfg, self.convolver.state)
 
 
 class PrefilterChain(nn.Module):
@@ -686,10 +627,10 @@ class PrefilterChain(nn.Module):
         self.register_buffer("prefilter_spectra", Hg)
         self.convolver = StereoConvolver(conv_state)
 
-    def forward(self, x, frame_mac="auto"):
+    def forward(self, x):
         return process_chain_fused(
             x, self.cfg, self.convolver.state,
-            (self.prefilter_spectra, self.prefilter_part), frame_mac)
+            (self.prefilter_spectra, self.prefilter_part))
 
 
 @setup_span("setup.fold")
@@ -716,16 +657,12 @@ def prepare_semi_folded_convolver(ir, block_size: int, spec, cfg: ChainConfig,
 
 
 def process_chain_semi_fused(x, cfg: ChainConfig,
-                             conv_state: StereoConvolverState,
-                             frame_mac="auto"):
+                             conv_state: StereoConvolverState):
     """Run time for `prepare_semi_folded_convolver`: sanitize -> scalar
     pre-gains -> folded NUC (dc_in + EQ + conv + output filter) -> makeup
     -> local 2x soft clip -> output DC blocker -> headroom, the staged
     chain's order (the soft clip and the output DC blocker do not commute
-    with the fold).  `frame_mac` passes through to the convolution
-    ("plain" also runs the output DC blocker in its FFT form, as
-    `process_chain`).
-    Spans: "chain" around "chain.sanitize", "chain.conv", "chain.post"
+    with the fold).  Spans: "chain" around "chain.sanitize", "chain.conv", "chain.post"
     (each scalar gain), "chain.soft_clip" and "chain.dc_block"."""
     if resolve_oversampling_factor(cfg.oversampling_factor,
                                    cfg.sample_rate) > 1:
@@ -736,15 +673,14 @@ def process_chain_semi_fused(x, cfg: ChainConfig,
         with span("chain.sanitize", dev):
             x = _sanitize_and_trim(x, cfg)
         with span("chain.conv", dev):
-            y = convolver_process(x, conv_state, 1.0, frame_mac)
+            y = convolver_process(x, conv_state, 1.0)
         if cfg.output_makeup_gain != 1.0:
             with span("chain.post", dev):
                 y = y * cfg.output_makeup_gain
         with span("chain.soft_clip", dev):
             y = soft_clip_local2x(y, *soft_clip_params(cfg.saturation_amount))
         with span("chain.dc_block", dev):
-            y, _ = dc_block(y, cfg.sample_rate, 3.0,
-                            route=_iir_route(frame_mac))
+            y, _ = dc_block(y, cfg.sample_rate, 3.0)
         if cfg.apply_output_headroom:
             with span("chain.post", dev):
                 y = y * K_OUTPUT_HEADROOM
@@ -761,6 +697,5 @@ class SemiFoldedChain(nn.Module):
         self.cfg = cfg
         self.convolver = StereoConvolver(conv_state)
 
-    def forward(self, x, frame_mac="auto"):
-        return process_chain_semi_fused(x, self.cfg, self.convolver.state,
-                                        frame_mac)
+    def forward(self, x):
+        return process_chain_semi_fused(x, self.cfg, self.convolver.state)

@@ -63,15 +63,15 @@ def linear_mix_ramp(n: int, old_mix: float, new_mix: float,
 
 
 def convolver_process(x, state: StereoConvolverState, mix: float = 1.0,
-                      frame_mac="auto", mix_ramp=None):
+                      mix_ramp=None):
     """Process (..., 2, N) through the stereo convolver with wet/dry mix.
 
     mix_ramp: optional per-sample mix values (N,), best on x's device
     (see `linear_mix_ramp`);
     when given it overrides the scalar `mix`, and the gains are evaluated
     per sample in x's dtype."""
-    wet_l = nuc_convolve(x[..., 0, :], state.left, frame_mac)
-    wet_r = nuc_convolve(x[..., 1, :], state.right, frame_mac)
+    wet_l = nuc_convolve(x[..., 0, :], state.left)
+    wet_r = nuc_convolve(x[..., 1, :], state.right)
     wet = torch.stack([wet_l, wet_r], dim=-2)
     if mix_ramp is not None:
         m = torch.as_tensor(mix_ramp, dtype=x.dtype, device=x.device)
@@ -110,5 +110,5 @@ class StereoConvolver(nn.Module):
         return StereoConvolverState(left=side("left", self.plans[0]),
                                     right=side("right", self.plans[1]))
 
-    def forward(self, x, mix: float = 1.0, frame_mac="auto", mix_ramp=None):
-        return convolver_process(x, self.state, mix, frame_mac, mix_ramp)
+    def forward(self, x, mix: float = 1.0, mix_ramp=None):
+        return convolver_process(x, self.state, mix, mix_ramp)

@@ -320,8 +320,7 @@ def direct_head(x, taps):
     return y.reshape(x.shape)
 
 
-def nuc_convolve(x, state: NUCState, frame_mac="auto",
-                 tail_delivery: str = "exact"):
+def nuc_convolve(x, state: NUCState, tail_delivery: str = "exact"):
     """Offline NUC convolution of x (..., N) -> (..., N).
 
     Layer li contributes  gain_li * OS_conv(x, H_li)[n - offset_li]
@@ -330,14 +329,13 @@ def nuc_convolve(x, state: NUCState, frame_mac="auto",
     tail layers on the reference's amortized schedule
     (`tail_delivery_map`) instead, reproducing the reference binary's
     streamed output sample for sample; samples past the last whole plan
-    block then get no tail contribution.  `frame_mac` passes through to
-    `uniform_partitioned_conv`."""
+    block then get no tail contribution."""
     if tail_delivery not in ("exact", "reference"):
         raise ValueError(f"tail_delivery: {tail_delivery!r}")
     n = x.shape[-1]
     y = None
     for li, (lp, H) in enumerate(zip(state.plan.layers, state.layer_spectra)):
-        yl = uniform_partitioned_conv(x, H, lp.part_size, frame_mac)
+        yl = uniform_partitioned_conv(x, H, lp.part_size)
         if tail_delivery == "reference" and li > 0:
             block = state.plan.block_size
             mp = np.full(n, -1, np.int64)

@@ -8,8 +8,8 @@ Coefficients host NumPy f64 (makeLPF/makeHPF, OutputFilter.cpp:25-73);
 `output_filter_process` runs the cascade's non-identity biquads as one
 cascade of ops/iir_cascade.py: on the CPU each biquad through
 `biquad_df2t_scan`'s "auto" route (JAX :77-100), on the card one launch
-of the IIR cascade kernel; with route "fft", the cascade's FFT form on
-any device (the plain path's reference).
+of the IIR cascade kernel; inside `ops.dispatch.plain()`, the cascade's
+FFT form on any device (the plain path's reference).
 """
 from __future__ import annotations
 
@@ -90,13 +90,12 @@ def output_filter_sections(sample_rate: float, conv_is_last: bool,
 
 def output_filter_process(x, sample_rate: float, conv_is_last: bool,
                           hc_mode: int = HC_NATURAL, lc_mode: int = LC_NATURAL,
-                          lp_mode: int = HC_NATURAL, route: str = "auto"):
+                          lp_mode: int = HC_NATURAL):
     """process() (OutputFilter.cpp:200+): the 3-biquad cascade of the
-    static modes from zero state, on x (..., N); route as
-    `iir_cascade`'s."""
+    static modes from zero state, on x (..., N)."""
     sections = output_filter_sections(sample_rate, conv_is_last, hc_mode,
                                       lc_mode, lp_mode)
     if not sections:
         return x
-    y, _ = iir_cascade(x, sections, route=route)
+    y, _ = iir_cascade(x, sections)
     return y

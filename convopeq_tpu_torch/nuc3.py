@@ -3,10 +3,9 @@ and the engine's room-correction convolver stage.
 
     python -m convopeq_tpu_torch.nuc3 [--profile]
 
-prints three JSON lines, each beside the card's name and power limit:
+prints two JSON lines, each beside the card's name and power limit:
 the realtime factor, in f32, of the prefilter chain (64 streams x 60 s;
-in f64 it is `parity.py`'s prefilter_f64 line), of the
-headline with partition="fused2" (64 streams x 60 s) and of the
+in f64 it is `parity.py`'s prefilter_f64 line) and of the
 room-correction convolver (256 streams x 10 s); with --profile, after
 each, the device time of one call by kernel (torch.profiler).
 
@@ -80,11 +79,11 @@ def roomcorr_convolver(device="cuda", dtype=torch.float32,
     return StereoConvolver(state)
 
 
-def roomcorr_process(conv: StereoConvolver, x, frame_mac="auto"):
+def roomcorr_process(conv: StereoConvolver, x):
     """x (..., 2, N) through the convolver at mix 0.7, ramped from 1.0."""
     ramp = linear_mix_ramp(x.shape[-1], ROOM_MIX_FROM, ROOM_MIX,
                            SAMPLE_RATE, ROOM_RAMP_SECONDS, x.device)
-    return conv(x, ROOM_MIX, frame_mac, mix_ramp=ramp)
+    return conv(x, ROOM_MIX, mix_ramp=ramp)
 
 
 def _rtf_line(metric, batch, seconds, walls, card) -> str:
@@ -96,7 +95,7 @@ def _rtf_line(metric, batch, seconds, walls, card) -> str:
 
 
 def main(argv=()):
-    """The three realtime factors, f32, on the card."""
+    """The two realtime factors, f32, on the card."""
     card = card_description()
 
     def report(metric, name, fn, x):
@@ -109,9 +108,6 @@ def main(argv=()):
     x = headline.headline_input(64, 60.0, "cuda")
     report("RTF 1M-tap 3-layer NUC + fused 20-band EQ prefilter @48kHz",
            "prefilter chain", prefilter_chain("cuda"), x)
-    report("RTF 1M-tap stereo IR + 20-band EQ @48kHz, folded, fused2",
-           "fused2 headline", headline.headline_chain("cuda",
-                                                      partition="fused2"), x)
     del x
     conv = roomcorr_convolver("cuda")
     report("RTF 24k-tap room-correction convolver, direct head, mix ramp "

@@ -11,8 +11,8 @@ Two first-order high-pass sections in series with cutoffs spread +-10%:
 
 `dc_block` runs the pair as one DC section of ops/iir_cascade.py: on the
 CPU the JAX package's direct-Toeplitz form (`dc_block_toeplitz`), on the
-card one launch of the IIR cascade kernel; with route "fft", the
-cascade's FFT form on any device (the plain path's reference).
+card one launch of the IIR cascade kernel; inside `dispatch.plain()`,
+the cascade's FFT form on any device (the plain path's reference).
 """
 from __future__ import annotations
 
@@ -36,12 +36,11 @@ def dc_blocker_alphas(sample_rate: float, cutoff_hz: float):
     return alphas
 
 
-def dc_block(x, sample_rate: float, cutoff_hz: float, state0=None,
-             route: str = "auto"):
+def dc_block(x, sample_rate: float, cutoff_hz: float, state0=None):
     """Apply the 2-stage DC blocker along the last axis of x (..., N).
-    Returns (y, final_state) with state = (s0, s1), (..., 2); route as
-    `iir_cascade`'s ("fft": zero state, final_state None)."""
+    Returns (y, final_state) with state = (s0, s1), (..., 2); inside
+    `dispatch.plain()` from zero state, final_state None."""
     a0, a1 = dc_blocker_alphas(sample_rate, cutoff_hz)
     s0 = None if state0 is None else torch.as_tensor(state0).unsqueeze(-2)
-    y, final = iir_cascade(x, (dc_section(a0, a1),), s0, route)
+    y, final = iir_cascade(x, (dc_section(a0, a1),), s0)
     return y, None if final is None else final[..., 0, :]

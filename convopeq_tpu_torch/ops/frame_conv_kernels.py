@@ -4,9 +4,9 @@ convopeq_tpu/ops/pallas_dd_fft.py).
 
 Each kernel has a wrapper, a plain PyTorch version and a launch count:
 
-- A CPU tensor takes the plain version (torch.fft and elementwise ops,
-  f32 or f64).
-- A CUDA tensor takes the hand-written kernel of csrc/frame_conv.cu for
+- A CPU tensor, or any tensor inside `dispatch.plain()`, takes the plain
+  version (torch.fft and elementwise ops, f32 or f64).
+- Any other tensor takes the hand-written kernel of csrc/frame_conv.cu for
   its dtype: f32 / complex64, or native f64 / complex128 (the TPU's
   double-f32 "dd" tier).  Any other dtype, a mixed call (complex64 X with
   complex128 H) or a shape the kernel does not take raises ValueError.
@@ -70,6 +70,7 @@ from __future__ import annotations
 import torch
 
 from ._build import load
+from .dispatch import use_kernel
 
 launch_counts = {"frames_rfft": 0, "causal_mac": 0, "irfft_valid": 0,
                  "frames_rfft_f64": 0, "causal_mac_c128": 0,
@@ -104,11 +105,6 @@ def kernel_entry(op: str, dtype) -> str:
 
 # what csrc/frame_conv.cu supports: power-of-two partitions in this range
 MIN_PART, MAX_PART = 512, 65536
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -209,7 +205,7 @@ def _forward(inp, name, p):
 def frames_rfft(frames):
     """frames (C, K, p) f32 or f64 -> X (C, K, p+1) complex64 or
     complex128."""
-    if frames.device.type == "cpu":
+    if not use_kernel(frames):
         return frames_rfft_plain(frames)
     return _forward(frames, "frames_rfft", frames.shape[-1])
 
@@ -217,7 +213,7 @@ def frames_rfft(frames):
 def osa_rfft(osa):
     """osa (C, K, 2p) f32 materialized overlap-save frames -> X (C, K, p+1)
     complex64."""
-    if osa.device.type == "cpu":
+    if not use_kernel(osa):
         return osa_rfft_plain(osa)
     if osa.shape[-1] % 2:
         raise ValueError(f"osa_rfft: frame length {osa.shape[-1]} is odd")
@@ -227,7 +223,7 @@ def osa_rfft(osa):
 def causal_mac(X, H):
     """X (C, K, B), H (P, B), both complex64 or both complex128 -> Y
     (C, K, B)."""
-    if X.device.type == "cpu":
+    if not use_kernel(X):
         return causal_mac_plain(X, H)
     entry = kernel_entry("causal_mac", X.dtype)
     _check_cuda(X, "causal_mac X", (X.dtype,), 3)
@@ -256,7 +252,7 @@ def causal_mac(X, H):
 
 def irfft_valid(Y):
     """Y (C, K, p+1) complex64 or complex128 -> y (C, K, p) f32 or f64."""
-    if Y.device.type == "cpu":
+    if not use_kernel(Y):
         return irfft_valid_plain(Y)
     entry = kernel_entry("irfft_valid", Y.dtype)
     _check_cuda(Y, "irfft_valid", (Y.dtype,), 3)

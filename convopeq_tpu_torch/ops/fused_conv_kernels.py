@@ -7,8 +7,9 @@ in one launch sequence whose spectra X and Y never reach device memory.
 Like the frame kernels it has a wrapper, a plain PyTorch version and a
 launch count:
 
-- A CPU tensor takes the plain version, `fused_conv_plain`.
-- A CUDA tensor takes the hand-written kernel `fused_conv_f32` of
+- A CPU tensor, or any tensor inside `dispatch.plain()`, takes the
+  plain version, `fused_conv_plain`.
+- Any other tensor takes the hand-written kernel `fused_conv_f32` of
   csrc/frame_conv.cu, or raises ValueError for a dtype or shape it does
   not take.
 - `launch_counts["fused_conv"]` grows by one at each kernel launch.
@@ -40,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from ._build import load
+from .dispatch import use_kernel
 from .frame_conv_kernels import (MAX_PART, MIN_PART, _check_cuda,
                                  _check_part, _raise_on, _stream,
                                  causal_mac_plain, frames_rfft_plain,
@@ -48,10 +50,6 @@ from .frame_conv_kernels import (MAX_PART, MIN_PART, _check_cuda,
 launch_counts = {"fused_conv": 0}
 
 MAX_FUSED_PARTS = 8
-
-
-def reset_launch_counts() -> None:
-    launch_counts["fused_conv"] = 0
 
 
 def fused_conv_supported(p: int, P: int) -> bool:
@@ -70,7 +68,7 @@ def fused_conv_plain(frames, H):
 
 def fused_conv(frames, H):
     """frames (C, K, p) f32, H (P, p+1) complex64 -> y (C, K, p) f32."""
-    if frames.device.type == "cpu":
+    if not use_kernel(frames):
         return fused_conv_plain(frames, H)
     _check_cuda(frames, "fused_conv frames", (torch.float32,), 3)
     _check_cuda(H, "fused_conv H", (torch.complex64,), 2)

@@ -8,9 +8,9 @@ input.  Two kinds of section:
 - `biquad_section(b0, b1, b2, a1, a2)`: a transposed-direct-form-II
   biquad, state (z1, z2), as `scan_iir.biquad_df2t_scan`.
 
-`iir_cascade(x, sections, state0, route)` runs them from the initial
-states state0 (..., K, 2) (zero when None) and returns (y, final states
-(..., K, 2)).  What runs where, with route "auto":
+`iir_cascade(x, sections, state0)` runs them from the initial states
+state0 (..., K, 2) (zero when None) and returns (y, final states
+(..., K, 2)).  What runs where:
 
 - A CPU tensor takes the plain version, `iir_cascade_plain`: the
   sections one after another in the forms of the JAX package, the DC
@@ -23,22 +23,21 @@ states state0 (..., K, 2) (zero when None) and returns (y, final states
   TPU-only f64 emulation of the DC blocker (`_dc_block_dd`) is not
   ported.  The plain version runs on the card too, where `chip_smoke.py`
   times it beside the kernel (TF32 off).
-- A CUDA tensor, float32 or float64 (a strided one through a contiguous
-  copy), takes the hand-written kernel of csrc/iir_cascade.cu: one launch
-  runs the whole
-  cascade, in f64 state and arithmetic, reading the signal once and
-  writing it once (its design and bound in the source note).  It takes
-  one DC section alone or one to MAX_SECTIONS biquads; anything else
-  raises ValueError: nothing falls back.
+- Any other tensor, float32 or float64 (a strided one through a
+  contiguous copy), takes the hand-written kernel of csrc/iir_cascade.cu:
+  one launch runs the whole cascade, in f64 state and arithmetic, reading
+  the signal once and writing it once (its design and bound in the source
+  note).  It takes one DC section alone or one to MAX_SECTIONS biquads;
+  anything else raises ValueError: nothing falls back.
 - `launch_counts["iir_cascade"]` grows by one at each kernel launch, and
   nowhere else.
 
-Route "fft" runs `iir_cascade_fft` on any device: the cascade's
-frequency response, made in long double on the host from each section's
-transfer function, applied to the zero-padded signal by FFT in its type;
-zero initial state, and no final states (None).  It shares nothing with
-the kernel or with the plain version, and is the f64 reference of the
-card's plain path (`frame_mac="plain"` in models/chain.py).  In f64 it
+Inside `dispatch.plain()`, any tensor takes `iir_cascade_fft`: the
+cascade's frequency response, made in long double on the host from each
+section's transfer function, applied to the zero-padded signal by FFT in
+its type; zero initial state (an initial state raises), and no final
+states (None).  It shares nothing with the kernel or with the plain
+version, and is the f64 reference of the card's plain path.  In f64 it
 sits 2e-16 to 2e-14 from the recurrence run in long double, where the
 plain version's 2x2 route of the 15-20 Hz high-passes carries ~7e-11 at
 48 kHz and ~5e-9 at 192 kHz (white noise x 0.25), over the 1e-12 that
@@ -55,6 +54,7 @@ import torch
 
 from ..utils.dsputil import device_constants, next_pow2
 from ._build import load
+from .dispatch import in_plain, use_kernel
 from .scan_iir import affine_scan_2x2, biquad_df2t_scan
 
 DC_CHUNK = 128
@@ -71,10 +71,6 @@ _RESPONSES: OrderedDict = OrderedDict()
 _PI = np.longdouble("3.14159265358979323846264338327950288")
 
 launch_counts = {"iir_cascade": 0}
-
-
-def reset_launch_counts() -> None:
-    launch_counts["iir_cascade"] = 0
 
 
 class Section(NamedTuple):
@@ -288,20 +284,18 @@ def _launch(x, y, sections, state0, final, flags, vals) -> int:
                   torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def iir_cascade(x, sections, state0=None, route: str = "auto"):
+def iir_cascade(x, sections, state0=None):
     """The cascade `sections` along the last axis of x (any batch shape)
-    from state0 (..., K, 2) or zero.  route "auto": the plain version on
-    the CPU, else one kernel launch; returns (y, final states
-    (..., K, 2)).  route "fft": `iir_cascade_fft` on any device, from
-    zero state; returns (y, None)."""
+    from state0 (..., K, 2) or zero: one kernel launch, or the plain
+    version where `use_kernel` says no; returns (y, final states
+    (..., K, 2)).  Inside `dispatch.plain()`: `iir_cascade_fft` on any
+    device, from zero state; returns (y, None)."""
     sections = tuple(sections)
-    if route == "fft":
+    if in_plain():
         if state0 is not None:
             raise ValueError("the FFT form runs from zero state")
         return iir_cascade_fft(x, sections), None
-    if route != "auto":
-        raise ValueError(f"route: {route!r}")
-    if x.device.type == "cpu":
+    if not use_kernel(x):
         return iir_cascade_plain(x, sections, state0)
     _check_kernel_input(x, sections, state0)
     x = x.contiguous()          # the staged chain hands it strided views

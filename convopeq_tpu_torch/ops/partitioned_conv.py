@@ -7,9 +7,11 @@ spectra H_j, and the per-frame causal MAC  Y_k = sum_j X_{k-j} * H_j
 computed for all frames at once: one forward transform of every frame,
 the MAC over the frame axis, one inverse transform of every frame.
 
-The three steps are the frame kernels of `frame_conv_kernels`: on a CUDA
-tensor the hand-written kernels of its dtype, on a CPU tensor their
-plain versions.  Routing is by dtype, then shape, before the launch:
+The three steps are the frame kernels of `frame_conv_kernels`: the
+hand-written kernels of the signal's dtype, or their plain versions
+where `ops/dispatch.py` says so (a CPU tensor; any tensor inside
+`dispatch.plain()`).  Routing is by dtype, then shape, before the
+launch, the same inside `plain()`:
 
 - f32 signal, complex64 spectra: a layer of P <= 8 partitions goes to
   the fused kernel of `fused_conv_kernels` (the JAX package's
@@ -29,15 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .frame_conv_kernels import (COMPLEX_OF, causal_mac, causal_mac_plain,
-                                 frames_rfft, frames_rfft_plain, irfft_valid,
-                                 irfft_valid_plain)
+from .frame_conv_kernels import (COMPLEX_OF, causal_mac, frames_rfft,
+                                 irfft_valid)
 from .fused_conv_kernels import fused_conv, fused_conv_supported
-
-_FRAME_STEPS = {
-    "auto": (frames_rfft, causal_mac, irfft_valid),
-    "plain": (frames_rfft_plain, causal_mac_plain, irfft_valid_plain),
-}
 
 
 def partition_spectra(h, part_size: int, num_parts: int | None = None,
@@ -61,41 +57,32 @@ def partition_spectra(h, part_size: int, num_parts: int | None = None,
     return torch.fft.rfft(parts, dim=-1).to(resolve_device(device))
 
 
-def uniform_partitioned_conv(x, Hparts, part_size: int, frame_mac="auto"):
+def uniform_partitioned_conv(x, Hparts, part_size: int):
     """Overlap-save partitioned convolution of x with precomputed spectra.
 
     x: (..., N) real signal, time last.
     Hparts: (P, part_size+1) complex partition spectra from
       `partition_spectra`, on x's device: complex64 for an f32 x,
       complex128 for an f64 x.
-    frame_mac: "auto" runs the kernels' wrappers (the CUDA kernels for a
-      CUDA tensor, the plain versions for a CPU tensor): for f32 the
-      fused kernel for P <= 8 partitions, else the three frame kernels;
-      for f64 the three f64 frame kernels;
-      "plain" runs the plain frame steps on any device (the f64
-      reference on the card).
 
     Returns y: (..., N) — frames k cover [k*p,(k+1)*p); equals linear
     convolution x*h truncated to N when Hparts are unfiltered.
     """
-    if frame_mac not in _FRAME_STEPS:
-        raise ValueError(f"frame_mac: {frame_mac!r}")
     if Hparts.device != x.device:
         raise ValueError(f"spectra on {Hparts.device}, signal on {x.device}")
     if COMPLEX_OF.get(x.dtype) != Hparts.dtype:
         raise ValueError(f"signal {x.dtype} with spectra {Hparts.dtype}: "
                          "take f32 with complex64 or f64 with complex128")
-    fwd, mac, inv = _FRAME_STEPS[frame_mac]
     n = x.shape[-1]
     p = part_size
     k = -(-n // p)
     pad = k * p - n
     xp = F.pad(x, (0, pad)) if pad else x
     frames = xp.reshape((-1, k, p)).contiguous()
-    if (frame_mac == "auto" and frames.dtype == torch.float32
+    if (frames.dtype == torch.float32
             and fused_conv_supported(p, Hparts.shape[0])):
         y = fused_conv(frames, Hparts)
     else:
-        y = inv(mac(fwd(frames), Hparts))
+        y = irfft_valid(causal_mac(frames_rfft(frames), Hparts))
     y = y.reshape(x.shape[:-1] + (k * p,))
     return y[..., :n]

@@ -7,10 +7,12 @@ A wrapper, a plain PyTorch version and a launch count:
   elementwise tensor ops over the rows, every multiply and every add its
   own op (no `addcmul`, no `torch.compile`), so that nothing is
   contracted into a fused multiply-add, on the CPU or on the card.
-- A CUDA tensor (f32 or f64) takes the hand-written kernel of
+- Any other tensor (f32 or f64) takes the hand-written kernel of
   csrc/error_feedback_quantize.cu, built with -fmad=false, or raises
   ValueError for a mode, order, type or shape the kernel does not take.
-  The kernel is bit-identical to the plain version.
+  The kernel is bit-identical to the plain version, and keeps running
+  inside `dispatch.plain()`: the one wrapper that tests the device
+  itself (see ops/dispatch.py).
 - `launch_counts["error_feedback_quantize"]` grows by one at each kernel
   launch, and nowhere else (under a lock: the engine's live learner
   launches from its own thread).
@@ -58,11 +60,6 @@ ROW_MODES = ("lattice", "lattice_fir")   # the modes with a per-row form
 
 launch_counts = {"error_feedback_quantize": 0}
 _COUNT_LOCK = threading.Lock()     # a live learner launches from its thread
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 def _check_mode(mode: str, order: int) -> None:
@@ -170,7 +167,7 @@ def error_feedback_quantize(x, u, coeffs, scale: float, headroom: float,
     """x (R, N), u (R, N, 2), state (R, order) or None -> (q, state).
     coeffs: (order,) shared, or (R, order) one row a signal row (lattice
     modes)."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu":      # the kernel stays under plain()
         return error_feedback_quantize_plain(x, u, coeffs, scale, headroom,
                                              mode, state)
     order, rc = _coeff_columns(coeffs, mode, x)

@@ -14,11 +14,12 @@ Parameters from the saturation amount s (DSPCoreDouble.cpp:471-475):
 up -> clip -> down) with the 2x intermediate eliminated by polyphase
 substitution, as in the JAX package.  What runs where:
 
-- A CPU tensor takes the plain version, `soft_clip_local2x_plain`: its
-  two 16-tap FIRs as `F.conv1d` and the clip as eager elementwise
-  PyTorch (~70 passes over the signal; callable on the card too, where
-  `chip_smoke.py` times it beside the kernel, TF32 off).
-- A CUDA tensor, float32 or float64 and contiguous, takes the
+- A CPU tensor, or any tensor inside `dispatch.plain()`, takes the plain
+  version, `soft_clip_local2x_plain`: its two 16-tap FIRs as `F.conv1d`
+  and the clip as eager elementwise PyTorch (~70 passes over the signal;
+  on the card it is the plain path's soft clip, and `chip_smoke.py`
+  times it beside the kernel, TF32 off).
+- Any other tensor, float32 or float64 and contiguous, takes the
   hand-written kernel of csrc/softclip.cu, one launch that reads the
   signal once and writes it once (its design and bound in the source
   note), or raises ValueError for anything else: nothing falls back.
@@ -37,14 +38,11 @@ import torch
 import torch.nn.functional as F
 
 from ._build import load
+from .dispatch import use_kernel
 from .fast_tanh import fast_tanh_clip
 from .oversample import design_halfband
 
 launch_counts = {"soft_clip_local2x": 0}
-
-
-def reset_launch_counts() -> None:
-    launch_counts["soft_clip_local2x"] = 0
 
 
 def soft_clip_params(saturation_amount: float):
@@ -145,8 +143,9 @@ def _launch(x, y, threshold, knee, asymmetry) -> int:
 
 def soft_clip_local2x(x, threshold: float, knee: float, asymmetry: float):
     """`soft_clip_local2x_plain`'s function over the last axis of x (any
-    batch shape): the plain version on the CPU, else one kernel launch."""
-    if x.device.type == "cpu":
+    batch shape): one kernel launch, or the plain version where
+    `use_kernel` says no."""
+    if not use_kernel(x):
         return soft_clip_local2x_plain(x, threshold, knee, asymmetry)
     _check_kernel_input(x)
     y = torch.empty_like(x)

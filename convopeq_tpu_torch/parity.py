@@ -11,10 +11,11 @@ same card and input, the peak device memory of the timed call, the
 batch, and the card's name and power limit.  With --profile, after each
 line, the device time of one call by kernel (`headline.profile_call`).
 
-The plain path runs the plain frame steps (`frame_mac="plain"`: cuFFT
-D2Z / Z2D through torch.fft and the plain MAC) and the DC blockers in
-their FFT form (ops/iir_cascade.py `iir_cascade_fft`), an implementation
-of its own; the dithered lines quantize its output with the same uniforms
+The plain path is the chain run inside `ops.dispatch.plain()`: the
+plain frame steps (cuFFT D2Z / Z2D through torch.fft and the plain MAC),
+the plain soft clip (cuDNN conv1d and eager elementwise ops) and the DC
+blockers in their FFT form (ops/iir_cascade.py `iir_cascade_fft`), an
+implementation of its own; the dithered lines quantize its output with the same uniforms
 through the quantizer kernel, which is bit-identical to its plain
 version.  The JAX package compares against a JAX f64 CPU golden; that
 comparison is made on the CPU by tests/test_torch_f64_tier.py.
@@ -57,6 +58,7 @@ from .models.dither import ADAPTIVE9, apply_dither
 from .models.eq import EQParams
 from .models.learner import factory_banks
 from .models.nuc import FilterSpec
+from .ops.dispatch import plain
 
 LINE_NAMES = ("headline_f64", "prefilter_f64", "config5", "config5d32",
               "config5d24", "config6_f64")
@@ -133,7 +135,7 @@ def build_semi_fixture(name: str, seconds: float, batch: int = 1,
 
 @dataclass
 class Line:
-    """One parity line on a device: its chain (chain(x, frame_mac=)), the
+    """One parity line on a device: its chain (chain(x)), the
     dither after it (bits 0: none), what its fidelity compares and its
     run shapes, (batch, seconds)."""
     name: str
@@ -152,9 +154,9 @@ class Line:
                             uniforms=u, adaptive_coeffs=self.k9,
                             lattice_ladder="fir")
 
-    def run(self, x, u=None, frame_mac="auto"):
+    def run(self, x, u=None):
         """(chain output, dithered output or None) of x, with uniforms u."""
-        y = self.chain(x, frame_mac=frame_mac)
+        y = self.chain(x)
         return y, (self.dither(y, u) if self.bits else None)
 
     def compared(self, y, q):
@@ -255,7 +257,8 @@ def main(argv=()):
         line = make_line(name)
         x, u = fidelity_signal(line)
         y, q = line.run(x, u)
-        y_ref, q_ref = line.run(x, u, frame_mac="plain")
+        with plain():
+            y_ref, q_ref = line.run(x, u)
         rel = rel_rms(line.compared(y, q), line.compared(y_ref, q_ref))
         del x, u, y, q, y_ref, q_ref
         xt = timed_signal(line)

@@ -176,8 +176,7 @@ class EvidenceExporter:
         its name and power limit; the dtype tiers; each hand-written
         kernel's launches so far (the wrappers' launch counts)."""
         from ..device import card_description
-        from ..ops import frame_conv_kernels, fused_conv_kernels
-        from ..ops import quantize_kernels
+        from ..ops.dispatch import launches
         dev = self.engine.device
         cuda = dev.type == "cuda"
         return {"device": str(dev),
@@ -185,14 +184,11 @@ class EvidenceExporter:
                 "device_count": torch.cuda.device_count() if cuda else 0,
                 "engine_dtype": str(self.engine.dtype),
                 "dtype_tiers": {
-                    "float32": "f32 frame kernels, fused_conv, f32 "
-                               "quantizer",
+                    "float32": "f32 frame kernels, fused_conv, soft clip, "
+                               "IIR cascade, f32 quantizer",
                     "float64": "f64 frame kernels (native complex128), "
-                               "f64 quantizer"},
-                "kernel_launches": {
-                    **frame_conv_kernels.launch_counts,
-                    **fused_conv_kernels.launch_counts,
-                    **quantize_kernels.launch_counts}}
+                               "soft clip, IIR cascade, f64 quantizer"},
+                "kernel_launches": launches()}
 
     def authority_verification_report(self) -> dict:
         """Config-authority verification: the serialized state is the

@@ -84,6 +84,7 @@ from .models.convolver import StereoConvolverState
 from .models.eq import EQParams
 from .models.nuc import FilterSpec, nuc_prepare, plan_layers
 from .ops import frame_conv_kernels as fk
+from .ops.dispatch import launches, plain, reset_launches
 from .parity import rel_rms
 from .runtime.streaming import StreamingChain
 from .runtime.telemetry import XrunDetector
@@ -170,7 +171,8 @@ def state_budget(ir_taps: int = IR_TAPS) -> dict:
 
 
 def _launches():
-    return dict(fk.launch_counts)
+    """The frame kernels' launches."""
+    return {k: n for k, n in launches().items() if k in fk.launch_counts}
 
 
 def profile_window(chain, state, blocks, steps: int):
@@ -370,8 +372,8 @@ def native_point(chain: StreamingChain, streams: int, windows: int = 400,
 def fidelity(tiers, seconds: float = 10.0, device="cuda", fixture=None,
              cache=None):
     """Each folded tier at 1 stream x `seconds` against the port's offline
-    folded chain in f64 on the plain path (`frame_mac="plain"`: torch.fft
-    and the plain MAC) on the same device and input, steady state only
+    folded chain in f64 on the plain path (`ops.dispatch.plain()`:
+    torch.fft and the plain MAC) on the same device and input, steady state only
     (`StreamingChain.warmup_samples`).  Yields one row a tier, with the
     frame kernels' launches of its streaming run.  cache: a dict that
     keeps the built chains by tier, for the caller to use again."""
@@ -381,7 +383,8 @@ def fidelity(tiers, seconds: float = 10.0, device="cuda", fixture=None,
     x = signal(1, int(SAMPLE_RATE * seconds), dev, F64, seed=3)
     st64 = prepare_folded_convolver(ir, BLOCK, spec, cfg, eqp, dtype=F64,
                                     device=dev)
-    ref = process_chain_fused(x, cfg, st64, frame_mac="plain")
+    with plain():
+        ref = process_chain_fused(x, cfg, st64)
     del st64
     for tier in tiers:
         _, dtype, fdl, _ = TIERS[tier]
@@ -390,7 +393,7 @@ def fidelity(tiers, seconds: float = 10.0, device="cuda", fixture=None,
             cache[tier] = build_chain(tier, dev, fixture)
         chain = cache[tier]
         n = x.shape[-1] // chain.block_size * chain.block_size
-        fk.reset_launch_counts()
+        reset_launches()
         y, _ = chain.process(x[..., :n].to(dtype))
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -425,12 +428,12 @@ def staged_fidelity(dtype, os_factor: int = 1, seconds: float = 5.0,
     nuc64 = nuc_prepare(ir, BLOCK * os_factor, spec, dtype=F64, device=dev)
     x = signal(1, int(SAMPLE_RATE * seconds) // BLOCK * BLOCK, dev, F64,
                seed=4)
-    ref = process_chain(x, cfg, eqp, StereoConvolverState(nuc64, nuc64),
-                        frame_mac="plain")
+    with plain():
+        ref = process_chain(x, cfg, eqp, StereoConvolverState(nuc64, nuc64))
     nuc = nuc64 if dtype == F64 else nuc_prepare(
         ir, BLOCK * os_factor, spec, dtype=dtype, device=dev)
     chain = StreamingChain(cfg, eqp, nuc, dtype=dtype, device=dev)
-    fk.reset_launch_counts()
+    reset_launches()
     y, _ = chain.process(x.to(dtype))
     if dev.type == "cuda":
         torch.cuda.synchronize()

@@ -9,13 +9,14 @@ and the "_f64" twins:
 the realtime factor at RTF_SHAPE (median of 3 calls after a warm-up,
 each fenced by torch.cuda.synchronize(), and the spread), the peak
 device memory of the timed calls, the relative RMS at FIDELITY_SHAPE
-against the port's f64 plain path on the same card and input
-(`frame_mac="plain"`: cuFFT D2Z / Z2D through torch.fft and the plain
-MAC, the DC blockers and the output filter in their FFT form,
-ops/iir_cascade.py `iir_cascade_fft`; the f64 EQ has no kernel), its
-limit, the kernel launches of the fidelity run, and the card's name and
-power limit.  With --profile, after each line, the device time of one
-call by kernel (`headline.profile_call`).
+against the port's f64 plain path on the same card and input (the
+chain run inside `ops.dispatch.plain()`: cuFFT D2Z / Z2D through
+torch.fft and the plain MAC, the plain soft clip, the DC blockers and
+the output filter in their FFT form, ops/iir_cascade.py
+`iir_cascade_fft`; the f64 EQ has no kernel), its limit, the kernel
+launches of the fidelity run, and the card's name and power limit.
+With --profile, after each line, the device time of one call by kernel
+(`headline.profile_call`).
 
 The lines (bench.py:160-252, 48 kHz; the IRs drawn from
 np.random.default_rng(0) in bench_all's order, the draws of its input
@@ -51,7 +52,9 @@ to ~1e-13 at 192 kHz, and the plain path through the FFT form, ~1e-15 from
 it, two forms that share nothing; the JAX package's f64 2x2 route,
 which the CPU route keeps, carries ~7e-11 at 48 kHz and ~5e-9 at
 192 kHz, too much for the twins' limit (tests/test_torch_iir_cascade.py
-holds both forms to the long-double recurrence).  `ulp_floor`, printed
+holds both forms to the long-double recurrence).  config5_staged_f64
+holds the soft clip kernel against its plain version the same way.
+`ulp_floor`, printed
 beside each f64 line's fidelity, is how far the plain path moves under
 a one-ulp change of the input.  config3_staged keeps both limits: its
 f32 limit is the larger of 2e-3 and 1.5x the JAX package's own f32
@@ -81,10 +84,7 @@ from .models.gain_planner import (EQ_THEN_CONVOLVER, AutoGainPlan,
                                   PlannerInput, plan)
 from .models.metering import spectrum_frames
 from .models.nuc import TAIL_BYPASS, FilterSpec
-from .ops import frame_conv_kernels as fk
-from .ops import fused_conv_kernels as fc
-from .ops import iir_cascade as ic
-from .ops import quantize_kernels as qk
+from .ops.dispatch import launches, plain, reset_launches
 from .parity import rel_rms
 
 SAMPLE_RATE = 48000.0
@@ -181,7 +181,7 @@ def planner_db(g: AutoGainPlan) -> dict:
 @dataclass
 class Line:
     """One line in one dtype: its chain (a module whose forward takes
-    (x, frame_mac=)), whether the analyzer tap runs on its output, its
+    x), whether the analyzer tap runs on its output, its
     relative-RMS limits by dtype, and fields of its own for its JSON
     line."""
     name: str
@@ -196,13 +196,13 @@ class Line:
     def limit(self) -> float:
         return self.limits[self.dtype]
 
-    def run(self, x, frame_mac="auto"):
+    def run(self, x):
         """The chain's output of x; with the analyzer, (output, frames)."""
-        y = self.chain(x, frame_mac=frame_mac)
+        y = self.chain(x)
         return (y, spectrum_frames(y)) if self.analyzer else y
 
-    def output(self, x, frame_mac="auto"):
-        out = self.run(x, frame_mac)
+    def output(self, x):
+        out = self.run(x)
         return out[0] if self.analyzer else out
 
 
@@ -272,27 +272,16 @@ def signal(batch: int, seconds: float, device="cuda", dtype=torch.float32,
     return headline.headline_input(batch, seconds, device, dtype, seed)
 
 
-def launch_counts() -> dict:
-    return {**fk.launch_counts, **fc.launch_counts, **qk.launch_counts,
-            **ic.launch_counts}
-
-
-def reset_launch_counts() -> None:
-    fk.reset_launch_counts()
-    fc.reset_launch_counts()
-    qk.reset_launch_counts()
-    ic.reset_launch_counts()
-
-
 def fidelity(line: Line, reference: Line, x) -> tuple:
     """(output, relative RMS against reference's f64 plain path, the
     launches of line's run of x, with the counts set to 0 just before)."""
-    reset_launch_counts()
+    reset_launches()
     y = line.output(x)
     torch.cuda.synchronize()
-    launches = launch_counts()
-    y_ref = reference.output(x.double(), frame_mac="plain")
-    return y, rel_rms(y, y_ref), launches
+    counts = launches()
+    with plain():
+        y_ref = reference.output(x.double())
+    return y, rel_rms(y, y_ref), counts
 
 
 def ulp_floor(line: Line, x, seed: int = 3) -> float:
@@ -304,8 +293,8 @@ def ulp_floor(line: Line, x, seed: int = 3) -> float:
     xp = x * (1.0 + 2.0 ** -52 * torch.randn(x.shape, generator=gen,
                                               device=x.device,
                                               dtype=x.dtype))
-    return rel_rms(line.output(xp, frame_mac="plain"),
-                   line.output(x, frame_mac="plain"))
+    with plain():
+        return rel_rms(line.output(xp), line.output(x))
 
 
 def measure_rtf(line: Line, x, reps: int = 3) -> dict:
@@ -331,7 +320,7 @@ def report_lines(lines, references: dict, card: str,
     for line in lines:
         reference = references[line.name.removesuffix("_f64") + "_f64"]
         x = signal(*FIDELITY_SHAPE, dtype=line.dtype)
-        y, rel, launches = fidelity(line, reference, x)
+        y, rel, counts = fidelity(line, reference, x)
         del x, y
         xt = signal(*RTF_SHAPE, dtype=line.dtype)
         row = measure_rtf(line, xt)
@@ -340,7 +329,7 @@ def report_lines(lines, references: dict, card: str,
             "unit": "x realtime", **row, "batch": RTF_SHAPE[0],
             "seconds": RTF_SHAPE[1], "rel_rms_vs_f64_plain": rel,
             "rel_rms_limit": line.limit, "fidelity_batch": FIDELITY_SHAPE[0],
-            "fidelity_seconds": FIDELITY_SHAPE[1], "launches": launches,
+            "fidelity_seconds": FIDELITY_SHAPE[1], "launches": counts,
             **line.info, "device": card}), flush=True)
         if profile:
             headline.print_profile(line.name, *headline.profile_call(

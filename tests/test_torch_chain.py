@@ -5,6 +5,7 @@ preparation, once with the JAX package's prepared state carried over by
 convopeq_tpu_torch.convert."""
 import subprocess
 import sys
+from contextlib import nullcontext
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -19,7 +20,7 @@ from convopeq_tpu_torch import convert, headline
 from convopeq_tpu_torch.device import resolve_device
 from convopeq_tpu_torch.models import chain as t_chain
 from convopeq_tpu_torch.models import nuc as t_nuc
-from convopeq_tpu_torch.ops import frame_conv_kernels as fk
+from convopeq_tpu_torch.ops.dispatch import launches, plain, reset_launches
 
 SR = 48000.0
 
@@ -76,8 +77,9 @@ def test_folded_slice_converted_state_matches_jax(jax_slice):
          for lp in plan.layers],
         plan.latency, plan.block_size, plan.ir_len, device="cpu")
     chain = t_chain.FoldedChain(t_chain.ChainConfig(sample_rate=SR), state)
-    for frame_mac in ("auto", "plain"):
-        y = chain(torch.from_numpy(x), frame_mac).numpy()
+    for path in (nullcontext(), plain()):
+        with path:
+            y = chain(torch.from_numpy(x)).numpy()
         assert _rel_rms(y, y_ref) <= 1e-12
 
 
@@ -93,20 +95,19 @@ def test_folded_chain_f32_tracks_f64(jax_slice):
 
 
 def test_folded_chain_rejects_unported_plans():
-    """The 3-layer (None) and "fused2" plans run and give the auto plan's
+    """The 3-layer (None) plan runs and gives the auto plan's
     convolution; an unknown plan and AIR tail mode still raise."""
     cfg = t_chain.ChainConfig()
     ir = headline.headline_ir(3000, seed=5)
     x = torch.from_numpy(np.random.default_rng(6).normal(size=(1, 2, 4000)))
-    prep = lambda partition, **kw: t_chain.prepare_folded_convolver(
+    prep = lambda partition: t_chain.prepare_folded_convolver(
         ir, 512, t_nuc.FilterSpec(), cfg, None, dtype=torch.float64,
-        partition=partition, device="cpu", **kw)
+        partition=partition, device="cpu")
     y_auto = t_chain.process_chain_fused(x, cfg, prep("auto")).numpy()
-    for partition in (None, "fused2"):
-        state = prep(partition, p_near=512)
-        assert state.left.plan.num_layers >= 2
-        y = t_chain.process_chain_fused(x, cfg, state).numpy()
-        assert _rel_rms(y, y_auto) <= 1e-12
+    state = prep(None)
+    assert state.left.plan.num_layers >= 2
+    y = t_chain.process_chain_fused(x, cfg, state).numpy()
+    assert _rel_rms(y, y_auto) <= 1e-12
     with pytest.raises(ValueError):
         prep("three-layer")
     with pytest.raises(ValueError):             # AIR tail mode
@@ -154,8 +155,8 @@ def test_cuda_device_raises_without_a_card():
 
 
 def test_cpu_run_launches_no_kernel():
-    fk.reset_launch_counts()
+    reset_launches()
     chain = headline.headline_chain("cpu", torch.float32, ir_len=5_000)
     y = chain(headline.headline_input(1, 0.05, "cpu"))
     assert torch.isfinite(y).all()
-    assert set(fk.launch_counts.values()) == {0}
+    assert set(launches().values()) == {0}

@@ -54,6 +54,7 @@ from convopeq_tpu_torch import convert
 from convopeq_tpu_torch.models import dither as td
 from convopeq_tpu_torch.models import learner as tl
 from convopeq_tpu_torch.ops import quantize_kernels as qk
+from convopeq_tpu_torch.ops.dispatch import reset_launches
 
 ROOT = Path(__file__).resolve().parent.parent
 VECTORS = ROOT / "tests" / "ref_harness" / "vectors"
@@ -347,7 +348,7 @@ def test_quantizer_wrapper_on_cpu_is_plain_and_checks_its_arguments():
     rng = np.random.default_rng(11)
     x = _t(rng.normal(size=(4, 70)) * 0.3)
     u = _t(rng.random(size=(4, 70, 2)))
-    qk.reset_launch_counts()
+    reset_launches()
     q, s = qk.error_feedback_quantize(x, u, K_TEST, 2.0 ** -15, H,
                                       "lattice_fir")
     qp, sp = qk.error_feedback_quantize_plain(x, u, K_TEST, 2.0 ** -15, H,

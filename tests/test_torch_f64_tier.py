@@ -16,6 +16,7 @@ package's f64 CPU path, on the CPU.
 """
 import subprocess
 import sys
+from contextlib import nullcontext
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -34,6 +35,7 @@ from convopeq_tpu_torch.models import chain as t_chain
 from convopeq_tpu_torch.models import convolver as t_conv
 from convopeq_tpu_torch.ops import frame_conv_kernels as fk
 from convopeq_tpu_torch.ops import partitioned_conv as t_pc
+from convopeq_tpu_torch.ops.dispatch import plain
 
 SR = 48000.0
 IR_CUT = 6000          # taps of the cut parity IRs
@@ -142,8 +144,9 @@ def jax_semi():
 def test_parity_config5_line_matches_jax(jax_semi):
     x, y_ref = jax_semi
     line = parity.make_line("config5", "cpu", ir_len=IR_CUT)
-    for frame_mac in ("auto", "plain"):
-        y, q = line.run(torch.from_numpy(x), frame_mac=frame_mac)
+    for path in (nullcontext(), plain()):
+        with path:
+            y, q = line.run(torch.from_numpy(x))
         assert q is None and y.shape == x.shape
         assert np.abs(y.numpy()).max() > 0.25          # the clip engaged
         assert _rel_rms(y.numpy(), y_ref) <= 1e-12
@@ -186,12 +189,11 @@ def test_f64_layers_route_to_the_f64_frame_kernels(monkeypatch, P):
     wrappers launch the f64 kernels for these dtypes; an f32 layer of
     P <= 8 goes to the fused kernel."""
     entries, fused = [], []
-    spies = tuple(
-        (lambda op, fn: lambda *a: (entries.append(
-            fk.kernel_entry(op, a[0].dtype)), fn(*a))[1])(op, fn)
-        for op, fn in zip(("frames_rfft", "causal_mac", "irfft_valid"),
-                          t_pc._FRAME_STEPS["auto"]))
-    monkeypatch.setitem(t_pc._FRAME_STEPS, "auto", spies)
+    for op in ("frames_rfft", "causal_mac", "irfft_valid"):
+        monkeypatch.setattr(t_pc, op, (
+            lambda op, fn: lambda *a: (entries.append(
+                fk.kernel_entry(op, a[0].dtype)), fn(*a))[1])(
+                    op, getattr(t_pc, op)))
     monkeypatch.setattr(t_pc, "fused_conv",
                         lambda fr, H: fused.append(fr.dtype) or
                         fk.irfft_valid_plain(fk.causal_mac_plain(
@@ -230,9 +232,9 @@ def test_mixed_dtype_call_raises():
     H64 = t_pc.partition_spectra(h, 512, dtype=torch.float64, device="cpu")
     H32 = t_pc.partition_spectra(h, 512, dtype=torch.float32, device="cpu")
     for sig, H in ((x, H32), (x.float(), H64)):
-        for frame_mac in ("auto", "plain"):
-            with pytest.raises(ValueError, match="spectra"):
-                t_pc.uniform_partitioned_conv(sig, H, 512, frame_mac)
+        for path in (nullcontext(), plain()):
+            with path, pytest.raises(ValueError, match="spectra"):
+                t_pc.uniform_partitioned_conv(sig, H, 512)
 
 
 def test_convert_takes_split_spectra():

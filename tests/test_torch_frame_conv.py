@@ -12,6 +12,8 @@
   exactly C*K*p values with a guard past it), and osa_rfft as the f32
   forward, bit for bit.
 """
+from contextlib import nullcontext
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from convopeq_tpu.ops import pallas_gemm_fft as pg
 from convopeq_tpu.ops import partitioned_conv as j_pc
 from convopeq_tpu_torch.ops import frame_conv_kernels as fk
 from convopeq_tpu_torch.ops import partitioned_conv as t_pc
+from convopeq_tpu_torch.ops.dispatch import plain, reset_launches
 
 import frame_conv_emulation as emu
 
@@ -109,7 +112,7 @@ def test_wrappers_take_plain_versions_on_cpu():
     rng = np.random.default_rng(2)
     fr = torch.from_numpy(_frames(rng, 2, 4, 512))
     H = torch.from_numpy(_cplx(rng, (3, 513)))
-    fk.reset_launch_counts()
+    reset_launches()
     X = fk.frames_rfft(fr)
     Y = fk.causal_mac(X, H)
     y = fk.irfft_valid(Y)
@@ -162,9 +165,10 @@ def test_uniform_partitioned_conv_f64_matches_jax(p, n, taps):
     Ht = t_pc.partition_spectra(h, p, dtype=torch.float64, device="cpu")
     np.testing.assert_allclose(Ht.numpy(), np.asarray(Hj), rtol=0,
                                atol=1e-12 * np.abs(np.asarray(Hj)).max())
-    for frame_mac in ("auto", "plain"):
-        yt = t_pc.uniform_partitioned_conv(torch.from_numpy(x), Ht, p,
-                                           frame_mac).numpy()
+    for path in (nullcontext(), plain()):
+        with path:
+            yt = t_pc.uniform_partitioned_conv(torch.from_numpy(x), Ht,
+                                               p).numpy()
         assert yt.shape == x.shape
         assert _rel_rms(yt, yj) <= 1e-12
 

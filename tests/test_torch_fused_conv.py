@@ -21,6 +21,7 @@ from convopeq_tpu.ops import pallas_gemm_fft as pg
 from convopeq_tpu_torch.ops import frame_conv_kernels as fk
 from convopeq_tpu_torch.ops import fused_conv_kernels as fc
 from convopeq_tpu_torch.ops import partitioned_conv as t_pc
+from convopeq_tpu_torch.ops.dispatch import plain, reset_launches
 
 import frame_conv_emulation as emu
 
@@ -67,7 +68,7 @@ def test_fused_conv_wrapper_takes_plain_version_on_cpu():
     frames, _ir, H = _case(rng, 4, 2, 5, 512)
     fr = torch.from_numpy(frames)
     Hc = torch.from_numpy(H.astype(np.complex64))
-    fc.reset_launch_counts()
+    reset_launches()
     assert torch.equal(fc.fused_conv(fr, Hc), fc.fused_conv_plain(fr, Hc))
     assert fc.launch_counts == {"fused_conv": 0}
 
@@ -109,7 +110,8 @@ def test_partitioned_conv_routes_small_layers_to_fused(monkeypatch, P,
     np.testing.assert_allclose(y.numpy(), ref, rtol=0,
                                atol=1e-12 * np.abs(ref).max())
     calls.clear()
-    y_plain = t_pc.uniform_partitioned_conv(x, H, 512, "plain")
+    with plain():
+        y_plain = t_pc.uniform_partitioned_conv(x, H, 512)
     assert calls == []
     np.testing.assert_allclose(y_plain.numpy(), y.numpy(), rtol=0,
                                atol=1e-12 * np.abs(ref).max())
@@ -122,8 +124,8 @@ def emulated(tmp_path_factory):
     return emu.build(tmp_path_factory)
 
 
-# K < P and ragged K included; C = 1 and C = 2; p = 16384 is fused2's
-# near layer; at 32768 and 65536 the row pass takes 256 threads a block
+# K < P and ragged K included; C = 1 and C = 2; at 32768 and 65536 the
+# row pass takes 256 threads a block
 @pytest.mark.parametrize("p,P,C,K", [(512, 1, 1, 3), (512, 5, 2, 3),
                                      (512, 8, 1, 11), (2048, 1, 2, 5),
                                      (2048, 5, 1, 13), (2048, 8, 2, 6),

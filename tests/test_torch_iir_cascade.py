@@ -34,13 +34,12 @@ and its wrapper (ops/iir_cascade.py), on the CPU.
     With the host's powers of the cascade's matrix made in long double
     alone, their rounding, carried from tile to tile, put the kernel
     ~6e-11 from it on the 192 kHz convolver-last cascade.
-- The FFT form `iir_cascade_fft` (the plain path's reference, route
-  "fft"), in f64: <= 1e-13 relative RMS from the recurrence in long
-  double on the same cascades (it sits ~4e-15 from it; the plain
-  version's f64 2x2 route ~6e-11 at 48 kHz).  `dc_block` and
-  `output_filter_process` take it with route "fft", and the chain's plain
-  path (`frame_mac="plain"`) runs every DC blocker and the output filter
-  through it, and the kernel never.
+- The FFT form `iir_cascade_fft` (the plain path's reference), in f64:
+  <= 1e-13 relative RMS from the recurrence in long double on the same
+  cascades (it sits ~4e-15 from it; the plain version's f64 2x2 route
+  ~6e-11 at 48 kHz).  Inside `dispatch.plain()`, `dc_block` and
+  `output_filter_process` take it, and the chain's plain path runs every
+  DC blocker and the output filter through it, and the kernel never.
 - Shapes: N = 1, N under one tile (2,048 f32 / 1,024 f64 samples),
   ragged last tiles, up to 20 tiles a row, R not a multiple of the
   block's eight warps, a row length off the 16-byte vector and a
@@ -56,6 +55,7 @@ and its wrapper (ops/iir_cascade.py), on the CPU.
 import ctypes
 import shutil
 import subprocess
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -65,6 +65,7 @@ import torch
 from convopeq_tpu_torch.models import output_filter as of
 from convopeq_tpu_torch.ops import dc_blocker as dcb
 from convopeq_tpu_torch.ops import iir_cascade as ic
+from convopeq_tpu_torch.ops.dispatch import plain, reset_launches
 from convopeq_tpu_torch.ops.scan_iir import biquad_df2t_scan
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -306,7 +307,7 @@ def test_cuda_source_rejects_what_it_does_not_take_emulated(emulated):
 # ------------------------------------------------------------ the wrapper
 
 def test_cpu_route_is_todays_forms_bit_for_bit():
-    ic.reset_launch_counts()
+    reset_launches()
     x = _signal((2, 3, 1000), 7)
     s0 = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 3, 2)))
     a0, a1 = dcb.dc_blocker_alphas(48000.0, 3.0)
@@ -343,7 +344,7 @@ def test_launch_counter_moves_only_on_a_launch(monkeypatch):
         return codes[0]
 
     monkeypatch.setattr(ic, "_launch", fake_launch)
-    ic.reset_launch_counts()
+    reset_launches()
     x = torch.empty((4, 2, 1000), device="meta")
     y, fin = dcb.dc_block(x, 48000.0, 3.0)
     assert y.shape == x.shape and fin.shape == (4, 2, 2)
@@ -362,7 +363,7 @@ def test_launch_counter_moves_only_on_a_launch(monkeypatch):
     with pytest.raises(RuntimeError, match="code 700"):
         dcb.dc_block(x, 48000.0, 3.0)
     assert ic.launch_counts["iir_cascade"] == 3
-    ic.reset_launch_counts()
+    reset_launches()
     assert ic.launch_counts["iir_cascade"] == 0
 
 
@@ -382,7 +383,7 @@ def test_strided_signal_goes_through_a_contiguous_copy(monkeypatch):
                                  "no_sections", "state_shape"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch, bad):
     monkeypatch.setattr(ic, "_launch", lambda *a: pytest.fail("launched"))
-    ic.reset_launch_counts()
+    reset_launches()
     dc, bq = _dc(48000.0, 3.0), of.output_filter_sections(48000.0, True)
     x = torch.empty((2, 64), device="meta")
     sections, state0 = bq, None
@@ -413,31 +414,33 @@ def test_fft_form_matches_the_long_double_recurrence(name, shape):
 
 
 def test_fft_route_of_the_callers():
-    """Route "fft" is `iir_cascade_fft` bit for bit, from zero state and
-    with no final state; it launches nothing, and takes no initial state
-    or unknown route."""
-    ic.reset_launch_counts()
+    """Inside plain(), the callers run `iir_cascade_fft` bit for bit, from
+    zero state and with no final state; on any device (meta here) they
+    launch nothing, and take no initial state."""
+    reset_launches()
     x = _signal((2, 3, 1000), 7)
-    y, fin = dcb.dc_block(x, 192000.0, 1.0, route="fft")
-    assert fin is None and torch.equal(
-        y, ic.iir_cascade_fft(x, _dc(192000.0, 1.0)))
-    for conv_is_last in (True, False):
-        y = of.output_filter_process(x, 96000.0, conv_is_last, route="fft")
-        assert y.is_contiguous() and torch.equal(y, ic.iir_cascade_fft(
-            x, of.output_filter_sections(96000.0, conv_is_last)))
+    with plain():
+        y, fin = dcb.dc_block(x, 192000.0, 1.0)
+        assert fin is None and torch.equal(
+            y, ic.iir_cascade_fft(x, _dc(192000.0, 1.0)))
+        for conv_is_last in (True, False):
+            y = of.output_filter_process(x, 96000.0, conv_is_last)
+            assert y.is_contiguous() and torch.equal(y, ic.iir_cascade_fft(
+                x, of.output_filter_sections(96000.0, conv_is_last)))
+        with pytest.raises(ValueError, match="zero state"):
+            ic.iir_cascade(x, _dc(48000.0, 3.0), torch.zeros((2, 3, 1, 2)))
+        y, fin = dcb.dc_block(torch.empty((2, 1000), device="meta"),
+                              48000.0, 3.0)
+        assert fin is None and y.shape == (2, 1000)
     assert ic.launch_counts["iir_cascade"] == 0
-    with pytest.raises(ValueError, match="zero state"):
-        ic.iir_cascade(x, _dc(48000.0, 3.0), torch.zeros((2, 3, 1, 2)),
-                       route="fft")
-    with pytest.raises(ValueError, match="route"):
-        ic.iir_cascade(x, _dc(48000.0, 3.0), route="kernel")
 
 
-@pytest.mark.parametrize("frame_mac", ["plain", "auto"])
-def test_plain_chain_runs_the_fft_form(monkeypatch, frame_mac):
+@pytest.mark.parametrize("path", ["plain", "auto"])
+def test_plain_chain_runs_the_fft_form(monkeypatch, path):
     """The chain's plain path runs its two DC blockers and its output
     filter (`process_chain`) and its output DC blocker
-    (`process_chain_semi_fused`) in the FFT form; "auto" never does."""
+    (`process_chain_semi_fused`) in the FFT form; outside `plain()` the
+    chain never does."""
     from convopeq_tpu_torch.models import chain
     from convopeq_tpu_torch.models import convolver
     from convopeq_tpu_torch.models.eq import EQParams
@@ -449,13 +452,16 @@ def test_plain_chain_runs_the_fft_form(monkeypatch, frame_mac):
         seen.append(tuple(s.kind for s in sections)) or fft(x, sections)))
     x = _signal((1, 2, 3000), 4)
     cfg = chain.ChainConfig(sample_rate=48000.0)
-    chain.process_chain(x, cfg, EQParams(), frame_mac=frame_mac)
+    ctx = plain if path == "plain" else nullcontext
+    with ctx():
+        chain.process_chain(x, cfg, EQParams())
     want = [("dc",), ("biquad",) * 3, ("dc",)]
-    assert seen == (want if frame_mac == "plain" else [])
+    assert seen == (want if path == "plain" else [])
     ir = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 600))
                           * 0.05)
     state = convolver.stereo_prepare(ir, 512, FilterSpec(48000.0),
                                      device="cpu")
     seen.clear()
-    chain.process_chain_semi_fused(x, cfg, state, frame_mac=frame_mac)
-    assert seen == ([("dc",)] if frame_mac == "plain" else [])
+    with ctx():
+        chain.process_chain_semi_fused(x, cfg, state)
+    assert seen == ([("dc",)] if path == "plain" else [])

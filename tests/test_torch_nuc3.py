@@ -9,9 +9,9 @@ against convopeq_tpu, in f64 on the CPU.
   the 600k-tap "long" case, at tests/test_ref_vectors.py's tolerances.
 - `tail_delivery_map` equal to the JAX one.
 - `convolver_process` at mix 0.7 and with a mix ramp, and the chains
-  (`process_chain_fused(prefilter=)`, partition=None, "fused2" with
-  p_near = 1024), at 1e-12 relative RMS: once prepared by the port, once
-  from the JAX state carried over by convopeq_tpu_torch.convert.
+  (`process_chain_fused(prefilter=)`, partition=None), at 1e-12 relative
+  RMS: once prepared by the port, once from the JAX state carried over by
+  convopeq_tpu_torch.convert.
 - The headline's plans, and no kernel launch on the CPU.
 """
 import json
@@ -29,8 +29,7 @@ from convopeq_tpu_torch import convert, headline, nuc3
 from convopeq_tpu_torch.models import chain as t_chain
 from convopeq_tpu_torch.models import convolver as t_conv
 from convopeq_tpu_torch.models import nuc as t_nuc
-from convopeq_tpu_torch.ops import frame_conv_kernels as fk
-from convopeq_tpu_torch.ops import fused_conv_kernels as fc
+from convopeq_tpu_torch.ops.dispatch import launches, reset_launches
 
 SR = 48000.0
 VECTORS = Path(__file__).resolve().parent / "ref_harness" / "vectors"
@@ -296,37 +295,20 @@ def test_prefilter_chain_matches_jax(chain_case):
         assert _rel_rms(y, y_ref) <= 1e-12
 
 
-@pytest.mark.parametrize("partition", [None, "fused2"])
+@pytest.mark.parametrize("partition", [None])
 def test_folded_plans_match_jax(chain_case, partition):
     ir, cfg, x = chain_case
-    spec = j_nuc.FilterSpec(SR)
-    if partition == "fused2":
-        # the JAX plan at p_near = 1024 (both levels live on 20k taps),
-        # on the combined IR that its prepare_folded_convolver builds
-        g = j_chain.fused_prefilter_ir(cfg, _j_eq(), spec=spec)
-        h_eff = np.asarray(ir, np.float64).copy()
-        for lp in j_nuc.plan_layers(ir.shape[-1], 512, spec).layers:
-            h_eff[:, lp.offset:lp.offset + lp.length] *= lp.gain
-        n = ir.shape[-1] + g.shape[0] - 1
-        m = 1 << (n - 1).bit_length()
-        combined = np.fft.irfft(np.fft.rfft(h_eff, m) * np.fft.rfft(g, m),
-                                m)[:, :n]
-        jstate = j_chain._prepare_fused2(combined, 512, jnp.float64,
-                                         p_near=1024)
-    else:
-        jstate = j_chain.prepare_folded_convolver(
-            ir, 512, spec, cfg, _j_eq(), dtype=jnp.float64, partition=None)
+    jstate = j_chain.prepare_folded_convolver(
+        ir, 512, j_nuc.FilterSpec(SR), cfg, _j_eq(), dtype=jnp.float64,
+        partition=partition)
     y_ref = np.asarray(j_chain.process_chain_fused(jnp.asarray(x), cfg,
                                                    jstate))
     tcfg = t_chain.ChainConfig(sample_rate=SR)
     tstate = t_chain.prepare_folded_convolver(
         ir, 512, t_nuc.FilterSpec(SR), tcfg, headline.headline_eq(),
-        dtype=torch.float64, partition=partition, p_near=1024, device="cpu")
+        dtype=torch.float64, partition=partition, device="cpu")
     _assert_state_equal(tstate.left, jstate.left)
     _assert_state_equal(tstate.right, jstate.right)
-    if partition == "fused2":
-        assert [(lp.part_size, lp.num_parts)
-                for lp in tstate.left.plan.layers][0] == (1024, 8)
     for state in (tstate, _converted(jstate)):
         y = t_chain.FoldedChain(tcfg, state)(torch.from_numpy(x)).numpy()
         assert _rel_rms(y, y_ref) <= 1e-12
@@ -353,12 +335,10 @@ def test_headline_plans():
 
 
 def test_cpu_runs_launch_no_kernel():
-    fk.reset_launch_counts()
-    fc.reset_launch_counts()
+    reset_launches()
     x = headline.headline_input(1, 0.2, "cpu")
     chain = nuc3.prefilter_chain("cpu", torch.float32, ir_len=12_000)
     conv = nuc3.roomcorr_convolver("cpu", ir_len=8000)
     for y in (chain(x), nuc3.roomcorr_process(conv, x)):
         assert y.shape == x.shape and torch.isfinite(y).all()
-    assert set(fk.launch_counts.values()) == {0}
-    assert fc.launch_counts == {"fused_conv": 0}
+    assert set(launches().values()) == {0}

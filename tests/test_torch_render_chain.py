@@ -20,6 +20,7 @@ config6's path) against convopeq_tpu, in f64 on the CPU.
 import json
 import subprocess
 import sys
+from contextlib import nullcontext
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -42,11 +43,10 @@ from convopeq_tpu_torch.models import chain as t_chain
 from convopeq_tpu_torch.models import dither as t_dither
 from convopeq_tpu_torch.models import nuc as t_nuc
 from convopeq_tpu_torch.ops import dc_blocker as t_dc
+from convopeq_tpu_torch.ops.dispatch import launches, plain, reset_launches
 from convopeq_tpu_torch.ops import fast_tanh as t_ft
-from convopeq_tpu_torch.ops import frame_conv_kernels as fk
 from convopeq_tpu_torch.ops import oversample as t_os
 from convopeq_tpu_torch.ops import partitioned_conv as t_pc
-from convopeq_tpu_torch.ops import quantize_kernels as qk
 from convopeq_tpu_torch.ops import scan_iir as t_scan
 from convopeq_tpu_torch.ops import softclip as t_sc
 
@@ -213,8 +213,9 @@ def test_semi_folded_render_carried_state_matches_jax(jax_render):
          for lp in plan.layers],
         plan.latency, plan.block_size, plan.ir_len, device="cpu")
     chain = t_chain.SemiFoldedChain(_cfg(t_chain), state)
-    for frame_mac in ("auto", "plain"):
-        y = chain(torch.from_numpy(x), frame_mac)
+    for path in (nullcontext(), plain()):
+        with path:
+            y = chain(torch.from_numpy(x))
         assert _rel_rms(y.numpy(), y_ref) <= 1e-12
     k9 = convert.banks_from_dict(jbanks.to_dict()).get(SR, 24, 5)
     q = t_dither.apply_dither(y, t_dither.ADAPTIVE9, SR, 24,
@@ -252,12 +253,10 @@ def test_config6_helpers_at_a_cut_size_on_cpu():
     k9 = config6.config6_bank()
     np.testing.assert_array_equal(
         k9, t_dither.lattice_coeffs(k9))            # inside +-0.85
-    fk.reset_launch_counts()
-    qk.reset_launch_counts()
+    reset_launches()
     gen = torch.Generator().manual_seed(1)
     q = config6.render(chain32, x, k9, gen)
-    assert set(fk.launch_counts.values()) | set(qk.launch_counts.values()) \
-        == {0}
+    assert set(launches().values()) == {0}
     grid = q.double() * 2.0 ** 23
     assert torch.equal(grid, torch.round(grid)) and q.shape == x.shape
     y32 = chain32(x).double().numpy()

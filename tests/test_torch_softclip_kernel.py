@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from convopeq_tpu_torch.ops import softclip as sc
+from convopeq_tpu_torch.ops.dispatch import reset_launches
 
 ROOT = Path(__file__).resolve().parent.parent
 F32_REL_RMS = 3e-7
@@ -145,7 +146,7 @@ def test_cuda_source_rejects_empty_shapes_emulated(emulated):
 # ------------------------------------------------------------ the wrapper
 
 def test_cpu_takes_the_plain_version_and_launches_nothing():
-    sc.reset_launch_counts()
+    reset_launches()
     x = _signal((2, 2, 300), 3)
     params = PARAMS["sat0.3"]
     y = sc.soft_clip_local2x(x, *params)
@@ -165,7 +166,7 @@ def test_launch_counter_moves_only_on_a_launch(monkeypatch):
         return codes[0]
 
     monkeypatch.setattr(sc, "_launch", fake_launch)
-    sc.reset_launch_counts()
+    reset_launches()
     x = torch.empty((4, 2, 1000), device="meta")
     y = sc.soft_clip_local2x(x, 0.8, 0.2, 0.03)
     assert y.shape == x.shape and y.device.type == "meta"
@@ -177,7 +178,7 @@ def test_launch_counter_moves_only_on_a_launch(monkeypatch):
     with pytest.raises(RuntimeError, match="code 700"):
         sc.soft_clip_local2x(x, 0.8, 0.2, 0.03)
     assert sc.launch_counts["soft_clip_local2x"] == 2
-    sc.reset_launch_counts()
+    reset_launches()
     assert sc.launch_counts["soft_clip_local2x"] == 0
 
 
@@ -185,7 +186,7 @@ def test_launch_counter_moves_only_on_a_launch(monkeypatch):
                                  "scalar"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch, bad):
     monkeypatch.setattr(sc, "_launch", lambda *a: pytest.fail("launched"))
-    sc.reset_launch_counts()
+    reset_launches()
     x = {"float16": torch.empty((2, 64), device="meta",
                                 dtype=torch.float16),
          "transposed": torch.empty((64, 2), device="meta").T,
