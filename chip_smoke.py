@@ -33,7 +33,10 @@
    and equal states out, and a call split at a ragged tile equal to the
    whole call; the ragged shapes R = 37 x N = 1001 (row spans not 16-B
    aligned), N = 20 (under a tile) and N = 1001 one value past alignment,
-   bit for bit; the f64 kernel against the reference binary's vectors
+   bit for bit; the rint form (scales 0.75 x 2^-23 in f32 and 0.75 x
+   2^-15 in f64, and 2^-31 in f32, where the modes that clamp q keep
+   rint) bit for bit at R = 37 x N = 1001, with the launches that took it
+   counted; the f64 kernel against the reference binary's vectors
    (tests/ref_harness/vectors/shapers.json, psycho.json) bit for bit; its
    time at config6's shape (R = 512, N = 480,000, f32, lattice_fir), with
    one warp and in f64, the time a step of each mode, the SM clock while
@@ -756,6 +759,34 @@ def phase_quantizer(card):
               f"N=1001, N=20 and N=1001 one value past alignment: q and "
               f"state equal to the plain version bit for bit [{card}]")
 
+    # the rint form: a scale that is not a power of two, and f32 at 32
+    # bits (2^23 scale < 1: the modes that clamp q keep rint), with the
+    # launches that took it counted
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for dt, scale, want in (
+            (torch.float32, 0.75 * 2.0 ** -23, set(coeffs)),
+            (torch.float64, 0.75 * 2.0 ** -15, set(coeffs)),
+            (torch.float32, 2.0 ** -31, set(qk.CLAMPS_Q))):
+        x = torch.randn((37, 1001), generator=gen, device=dev, dtype=dt) * 0.3
+        u = torch.rand((37, 1001, 2), generator=gen, device=dev, dtype=dt)
+        for mode, c in coeffs.items():
+            s0 = (torch.rand((37, len(c)), generator=gen, device=dev,
+                             dtype=dt) * 2 - 1) * (2 * scale)
+            dispatch.reset_launches()
+            q, s = qk.error_feedback_quantize(x, u, c, scale, h, mode, s0)
+            rint = qk.launch_counts["error_feedback_quantize_rint"]
+            qp, sp = qk.error_feedback_quantize_plain(x, u, c, scale, h,
+                                                      mode, s0)
+            check(torch.equal(q, qp) and torch.equal(s, sp),
+                  f"quantizer {mode} {dt} scale {scale!r} equals its plain "
+                  f"version")
+            check(rint == (mode in want), f"quantizer {mode} {dt} scale "
+                  f"{scale!r}: {rint} rint launches")
+    print(f"quantizer rint form (scale 0.75 x 2^-23 f32, 0.75 x 2^-15 f64, "
+          f"2^-31 f32), all five modes at R=37 N=1001: q and state equal "
+          f"to the plain version bit for bit, rint launches as chosen "
+          f"[{card}]")
+
     # the f64 kernel against the reference binary (built -ffp-contract=off)
     v = json.loads((VECTORS / "shapers.json").read_text())
     pv = json.loads((VECTORS / "psycho.json").read_text())
@@ -1051,8 +1082,11 @@ def phase_config6(card):
           "config6 output finite, shaped")
     check(bool((grid == torch.round(grid)).all()), "output on the 24-bit grid")
     check(max_lsb <= lim, "output within the fir ladder's bound")
-    check(all(launches[n] > 0 for n in [*fk.F32_KERNELS, *qk.launch_counts]),
+    check(all(launches[n] > 0 for n in [*fk.F32_KERNELS,
+                                         "error_feedback_quantize"]),
           "every kernel of the config6 path launched")
+    check(launches["error_feedback_quantize_rint"] == 0,
+          "config6's quantizer rounds by the folded add pair")
     check(launches["soft_clip_local2x"] == 1,
           f"one soft clip launch in the config6 call ({launches})")
     del x, y32, y64, q, chain64, grid, dev_lsb

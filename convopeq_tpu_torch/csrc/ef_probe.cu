@@ -9,15 +9,19 @@
 //   ef_probe_step    (b) the quantizer's per-sample step (ef_step), one
 //                    warp of 32 rows, fed from registers: xh and d of 8
 //                    samples a row held in registers and replayed, no
-//                    shared memory, no staging
+//                    shared memory, no staging; with either rounding
+//                    (rint, or the folded add pair)
 //   ef_probe_tile    the chain warp's loop over one row of a stage
 //                    (ef_run_tile), replayed over one stage in shared
 //                    memory: the chain warp's shared loads and stores,
 //                    without the copy warp
 //   ef_probe_ops     (c) dependent chains of one instruction each (f32 and
 //                    f64 add, multiply, NaN-passing max, round to
-//                    integer, a shared-memory load chase), and of a
-//                    multiply and the kernel's clamp in f32 and f64
+//                    integer, a shared-memory load chase), of a
+//                    multiply and the kernel's clamp in f32 and f64, and
+//                    of the kernel's rounding to the grid (ef_round) in
+//                    f32 and f64, rint or folded, without and with the
+//                    clamp of q
 #include "error_feedback_quantize.cu"
 
 namespace {
@@ -35,7 +39,7 @@ __global__ void ef_probe_clock_kernel(long long* out, int spins) {
 
 constexpr int kProbeRegs = 8;  // samples a row replayed from registers
 
-template <typename T, int MODE, int ORDER>
+template <typename T, int MODE, int ORDER, bool FOLD>
 __global__ void __launch_bounds__(32)
     ef_probe_step_kernel(const T* in, T* out, long long* cycles, int n,
                          EfConsts<T> k) {
@@ -56,14 +60,14 @@ __global__ void __launch_bounds__(32)
   for (int t = 0; t < n; t += kProbeRegs) {
 #pragma unroll
     for (int j = 0; j < kProbeRegs; ++j)
-      acc = acc + ef_step<T, MODE, ORDER>(xr[j], dr[j], s, k);
+      acc = acc + ef_step<T, MODE, ORDER, FOLD>(xr[j], dr[j], s, k);
   }
   const long long c1 = clock64();
   out[r] = acc + s[0];
   if (r == 0) cycles[0] = c1 - c0;
 }
 
-template <typename T, int MODE, int ORDER>
+template <typename T, int MODE, int ORDER, bool FOLD>
 __global__ void __launch_bounds__(32)
     ef_probe_tile_kernel(const T* in, T* out, long long* cycles, int n,
                          EfConsts<T> k) {
@@ -84,8 +88,8 @@ __global__ void __launch_bounds__(32)
   __syncwarp();
   const long long c0 = clock64();
   for (int t = 0; t < n; t += Tl::kSteps)
-    ef_run_tile<T, MODE, ORDER>(xq + r * Tl::kLd, d + r * Tl::kLd, steps, s,
-                                k);
+    ef_run_tile<T, MODE, ORDER, FOLD>(xq + r * Tl::kLd, d + r * Tl::kLd,
+                                      steps, s, k);
   const long long c1 = clock64();
   out[r] = xq[r * Tl::kLd] + s[0];
   if (r == 0) cycles[0] = c1 - c0;
@@ -123,12 +127,23 @@ __device__ long long ef_probe_mul_clamp(T& v, T a, int reps) {
   return clock64() - c0;
 }
 
-// the 8 chains above, the shared chase, and the multiply-and-clamp in
-// f32 and f64
-constexpr int kProbeOps = 11;
+// the kernel's rounding to the grid, 16 times over
+template <typename T, bool CLAMP, bool FOLD>
+__device__ long long ef_probe_round(T& v, const EfConsts<T>& k, int reps) {
+  const long long c0 = clock64();
+  for (int i = 0; i < reps; ++i)
+    EF_PROBE_16((v = ef_round<T, CLAMP, FOLD>(v, k)));
+  return clock64() - c0;
+}
+
+// the 8 chains above, the shared chase, the multiply-and-clamp in f32 and
+// f64, and the roundings: f32 rint, folded, rint with the clamp of q,
+// folded with it, then the same in f64
+constexpr int kProbeOps = 19;
 
 __global__ void __launch_bounds__(32)
-    ef_probe_ops_kernel(long long* cycles, float a, double b, int reps) {
+    ef_probe_ops_kernel(long long* cycles, float a, double b, int reps,
+                        EfConsts<float> kf, EfConsts<double> kd) {
   // each entry holds the shared address of the next: a chase of loads
   __shared__ unsigned chase[256];
   const unsigned base = (unsigned)__cvta_generic_to_shared(chase);
@@ -153,31 +168,45 @@ __global__ void __launch_bounds__(32)
   c[8] = clock64() - c0;
   c[9] = ef_probe_mul_clamp(v, a, reps);
   c[10] = ef_probe_mul_clamp(w, b, reps);
+  c[11] = ef_probe_round<float, false, false>(v, kf, reps);
+  c[12] = ef_probe_round<float, false, true>(v, kf, reps);
+  c[13] = ef_probe_round<float, true, false>(v, kf, reps);
+  c[14] = ef_probe_round<float, true, true>(v, kf, reps);
+  c[15] = ef_probe_round<double, false, false>(w, kd, reps);
+  c[16] = ef_probe_round<double, false, true>(w, kd, reps);
+  c[17] = ef_probe_round<double, true, false>(w, kd, reps);
+  c[18] = ef_probe_round<double, true, true>(w, kd, reps);
   if (threadIdx.x == 0) {
     for (int i = 0; i < kProbeOps; ++i) cycles[i] = c[i];
     cycles[kProbeOps] = (long long)(v + (float)w + (float)j);
   }
 }
 
-// tile = 0: ef_probe_step_kernel; 1: ef_probe_tile_kernel
+// tile = 0: ef_probe_step_kernel; 1: ef_probe_tile_kernel; fold: the
+// rounding's form (1 the folded add pair: scale must allow it, ef_folds)
 template <typename T>
 int ef_probe_step(const void* in, void* out, void* cycles, int n, int mode,
                   const double* coeffs, int order, double scale,
-                  double headroom, int tile) {
+                  double headroom, int tile, int fold) {
   using Tl = EfTile<T>;
   if (n < Tl::kSteps || n % Tl::kSteps || n % kProbeRegs) return -1;
+  if (fold && !ef_folds<T>(mode, scale)) return -1;
   const EfConsts<T> k = ef_consts<T>(coeffs, order, scale, headroom);
   const size_t smem = (size_t)kEfRows * 2 * Tl::kLd * sizeof(T);
   return ef_dispatch(mode, order, [&](auto m, auto o) -> int {
     constexpr int M = decltype(m)::value;
     constexpr int O = decltype(o)::value;
-    if (tile)
-      ef_probe_tile_kernel<T, M, O><<<1, 32, smem>>>(
-          (const T*)in, (T*)out, (long long*)cycles, n, k);
-    else
-      ef_probe_step_kernel<T, M, O><<<1, 32>>>((const T*)in, (T*)out,
-                                               (long long*)cycles, n, k);
-    return (int)cudaGetLastError();
+    auto launch = [&](auto f) {
+      constexpr bool F = decltype(f)::value;
+      if (tile)
+        ef_probe_tile_kernel<T, M, O, F><<<1, 32, smem>>>(
+            (const T*)in, (T*)out, (long long*)cycles, n, k);
+      else
+        ef_probe_step_kernel<T, M, O, F><<<1, 32>>>(
+            (const T*)in, (T*)out, (long long*)cycles, n, k);
+      return (int)cudaGetLastError();
+    };
+    return fold ? launch(std::true_type()) : launch(std::false_type());
   });
 }
 
@@ -193,22 +222,30 @@ int ef_probe_clock(void* out, int spins) {
 // in: 32 rows x 8 samples x (x, u0, u1); out: 32 values; cycles: 1
 int ef_probe_step_f32(const void* in, void* out, void* cycles, int n,
                       int mode, const double* coeffs, int order,
-                      double scale, double headroom, int tile) {
+                      double scale, double headroom, int tile, int fold) {
   return ef_probe_step<float>(in, out, cycles, n, mode, coeffs, order, scale,
-                              headroom, tile);
+                              headroom, tile, fold);
 }
 
 int ef_probe_step_f64(const void* in, void* out, void* cycles, int n,
                       int mode, const double* coeffs, int order,
-                      double scale, double headroom, int tile) {
+                      double scale, double headroom, int tile, int fold) {
   return ef_probe_step<double>(in, out, cycles, n, mode, coeffs, order, scale,
-                               headroom, tile);
+                               headroom, tile, fold);
 }
 
 // cycles: kProbeOps + 1 values, each the cycles of 16 * reps instructions
-int ef_probe_ops(void* cycles, int reps) {
+// (of 16 * reps roundings for the last eight); the roundings at scale_f32
+// and scale_f64 (powers of two that fold in every mode)
+int ef_probe_ops(void* cycles, int reps, double scale_f32, double scale_f64) {
+  if (!ef_folds<float>(EF_LATTICE_FIR, scale_f32) ||
+      !ef_folds<double>(EF_LATTICE_FIR, scale_f64))
+    return -1;
   ef_probe_ops_kernel<<<1, 32>>>((long long*)cycles, 1.0000001f, 1.0000001,
-                                 reps);
+                                 reps, ef_consts<float>(nullptr, 0, scale_f32,
+                                                        1.0),
+                                 ef_consts<double>(nullptr, 0, scale_f64,
+                                                   1.0));
   return (int)cudaGetLastError();
 }
 

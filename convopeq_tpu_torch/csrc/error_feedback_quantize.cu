@@ -19,13 +19,18 @@
 // where xh = x*headroom, fb = c0*s0 + c1*s1 + ... summed left to right, d
 // is the TPDF term formed as the JAX wrapper forms it
 // (pallas_kernels.py:97-100): ((u0 + u1) - 1)*scale, psycho's ((u0 - .5)
-// + (u1 - .5))*scale, and rint rounds half to even.  Every multiply and
-// every add is rounded on its own: the library is built with -fmad=false,
-// because these trajectories are chaotic at the ULP level and a
-// contracted multiply-add flips a rounding decision within a few hundred
-// samples.  The kernel is then bit-identical to its plain PyTorch version
-// (one op per launch, which forms xh and d up front as the copy warp
-// does), and its f64 build to the reference binary (built
+// + (u1 - .5))*scale, and rint rounds half to even.  Where scale is a
+// power of two, the rounding is folded into one add pair (ef_round):
+// with K = 2^(digits-1)*scale (1.0 for 24 bits in f32), |v| < K rounds to
+// the grid as z = (|v| + K) - K, since the ulp of [K, 2K) is scale and K /
+// scale is even, and q = copysign(z, v) is rint(v/scale)*scale bit for
+// bit, signed zeros included; |v| >= K is on the grid already.  Every
+// multiply and every add is rounded on its own: the library is built
+// with -fmad=false, because these trajectories are chaotic at the ULP
+// level and a contracted multiply-add flips a rounding decision within a
+// few hundred samples.  The kernel is then bit-identical to its plain
+// PyTorch version (one op per launch, which forms xh and d up front as
+// the copy warp does), and its f64 build to the reference binary (built
 // -ffp-contract=off).
 //
 // What bounds it: each row is one dependency chain through the feedback
@@ -36,14 +41,17 @@
 // takes tens of ms.  Measured on an H100 80GB HBM3 at 700 W (PERF.md;
 // `python -m convopeq_tpu_torch.sweep probe`): a dependent FADD, FMUL or
 // FMNMX is 4.1 cycles, FRND 17, DADD and DMUL 8.1, the f64 clamp
-// (compare and select) ~18, so the f32 lattice_fir step's 25 dependent
-// ops take >= 123 cycles (29.6 ms at config6's shape) and the f64 one's
-// >= 221.  The step fed from registers runs 148 (f32) and 279 (f64).
+// (compare and select) ~18; the rounding with the clamp of q takes 37.2
+// cycles as FMUL, FRND, FMUL and the clamp, and ~18.8 folded (ef_round),
+// so the f32 lattice_fir step's chain takes >= ~106 cycles (25.5 ms at
+// config6's shape; >= 125 with rint) and the f64 one's >= ~202.  The step
+// fed from registers runs 128 (f32) and 255 (f64), 148 and 279 with rint.
 // The earlier design (one warp a block, staging its own tiles row by
 // row between steps) ran ~500 and ~630: its staging code, ~20,000
 // cycles a tile of dependent address arithmetic, loops and barriers, sat
-// in series with the chain.  This design runs ~157 and ~311 cycles a
-// step (37.8 ms at config6's shape): the chain's own latency binds it.
+// in series with the chain.  This design runs ~139 and ~279 cycles a
+// step (33.6 ms at config6's shape; ~157 and ~311 with rint): the
+// chain's own latency binds it.
 //
 // Design: a block is two warps over 32 rows.
 // - The chain warp (warp 0) does only the recurrence: lane r holds row
@@ -94,6 +102,7 @@
 #endif
 
 #include <cmath>
+#include <limits>
 #include <stddef.h>
 #include <type_traits>
 
@@ -121,6 +130,7 @@ template <typename T>
 struct EfConsts {
   T c[kEfMaxOrder];
   T headroom, scale, inv_scale, hi, err_lim, state_lim;
+  T fold;  // K = 2^(digits-1)*scale, the folded rounding's add
 };
 
 template <typename T>
@@ -134,7 +144,30 @@ EfConsts<T> ef_consts(const double* coeffs, int order, double scale,
   k.hi = (T)(1.0 - scale);
   k.err_lim = (T)(2.0 * scale);
   k.state_lim = (T)2.0;
+  k.fold = (T)std::ldexp(scale, std::numeric_limits<T>::digits - 1);
   return k;
+}
+
+// The modes that clamp q to [-1, 1 - scale] after rounding.
+constexpr bool ef_clamps_q(int mode) {
+  return mode == EF_FIXED15 || mode == EF_LATTICE || mode == EF_LATTICE_FIR;
+}
+
+// Whether a launch rounds by the folded add pair (ef_round, FOLD true):
+// scale is a power of two that is normal in T with K finite, and, in the
+// modes that clamp q, K >= 1, so that |v| >= K lies past the clamp.  The
+// same in f64: there too the folded form's step is the shorter in every
+// mode on an H100 (`sweep probe`, the step fed from registers: 4.7 to 37
+// cycles shorter).
+template <typename T>
+bool ef_folds(int mode, double scale) {
+  using L = std::numeric_limits<T>;
+  int e;
+  if (!(scale >= (double)L::min()) || (double)(T)scale != scale ||
+      std::frexp(scale, &e) != 0.5)
+    return false;
+  const double K = std::ldexp(scale, L::digits - 1);
+  return K <= (double)L::max() && (!ef_clamps_q(mode) || K >= 1.0);
 }
 
 EF_HD float ef_rint(float v) {
@@ -150,6 +183,50 @@ EF_HD double ef_rint(double v) {
 #else
   return std::rint(v);
 #endif
+}
+
+EF_HD float ef_abs(float v) {
+#ifdef __CUDA_ARCH__
+  return fabsf(v);
+#else
+  return std::fabs(v);
+#endif
+}
+EF_HD double ef_abs(double v) {
+#ifdef __CUDA_ARCH__
+  return fabs(v);
+#else
+  return std::fabs(v);
+#endif
+}
+
+EF_HD float ef_copysign(float v, float sign) {
+#ifdef __CUDA_ARCH__
+  return copysignf(v, sign);
+#else
+  return std::copysign(v, sign);
+#endif
+}
+EF_HD double ef_copysign(double v, double sign) {
+#ifdef __CUDA_ARCH__
+  return copysign(v, sign);
+#else
+  return std::copysign(v, sign);
+#endif
+}
+
+// min(v, hi), NaN passing through: f32 on the card the NaN-propagating
+// min instruction.
+template <typename T>
+EF_HD T ef_min(T v, T hi) {
+#ifdef __CUDA_ARCH__
+  if constexpr (std::is_same<T, float>::value) {
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(v), "f"(hi));
+    return r;
+  }
+#endif
+  return v > hi ? hi : v;
 }
 
 // min(max(v, lo), hi), NaN passing through (as torch.clamp).  f32 on the
@@ -188,8 +265,36 @@ EF_HD T ef_dither(T u0, T u1, const EfConsts<T>& k) {
   return ((u0 + u1) - T(1)) * k.scale;
 }
 
+// v rounded half to even onto the grid of k.scale and, where CLAMP, q
+// clamped to [-1, k.hi].  FOLD false: rint(v/scale)*scale, then the clamp.
+// FOLD true (scale a power of two, ef_folds): z = (|v| + K) - K, and q is
+// z, or |v| where |v| >= K (on the grid already), with v's sign; with the
+// clamp (K >= 1, so |v| >= K gives z >= 1), min(z, v < 0 ? 1 : hi) with
+// v's sign.  On the chain: the two adds, the select or the min, and the
+// sign; |v| is an operand modifier of the first add, and the comparison
+// and the limit's select run beside the adds.  The sign is the sign op,
+// but a multiply by copysign(1, v) after the f32 clamp: the faster of the
+// two in each on an H100 (the kernel's cycles a step: psycho f32 86.1
+// against 86.6, lattice_fir f32 136.7 against 138.7; f64 equal).  Both
+// forms give the same bits wherever v/scale is finite (|v| < 2^105 for 24
+// bits in f32).
+template <typename T, bool CLAMP, bool FOLD>
+EF_HD T ef_round(T v, const EfConsts<T>& k) {
+  if constexpr (FOLD) {
+    const T a = ef_abs(v);
+    const T z = (a + k.fold) - k.fold;
+    if constexpr (!CLAMP) return ef_copysign(a < k.fold ? z : a, v);
+    const T m = ef_min(z, v < T(0) ? T(1) : k.hi);
+    if constexpr (std::is_same<T, float>::value)
+      return m * ef_copysign(T(1), v);
+    return ef_copysign(m, v);
+  }
+  const T q = ef_rint(v * k.inv_scale) * k.scale;
+  return CLAMP ? ef_clamp(q, T(-1), k.hi) : q;
+}
+
 // One sample of one row: returns q, advances the state s in place.
-template <typename T, int MODE, int ORDER>
+template <typename T, int MODE, int ORDER, bool FOLD>
 EF_HD T ef_step(T xh, T d, T (&s)[ORDER], const EfConsts<T>& k) {
   T fb = k.c[0] * s[0];
 #pragma unroll
@@ -198,12 +303,12 @@ EF_HD T ef_step(T xh, T d, T (&s)[ORDER], const EfConsts<T>& k) {
   T q, err;
   if (MODE == EF_PSYCHO) {
     const T tmp = (xh + d) + fb;
-    q = ef_rint(tmp * k.inv_scale) * k.scale;
+    q = ef_round<T, false, FOLD>(tmp, k);
     err = tmp - q;
   } else {
     const T y = kLattice ? xh + fb : xh - fb;
-    q = ef_rint((ef_clamp(y, T(-1), k.hi) + d) * k.inv_scale) * k.scale;
-    if (MODE != EF_FIXED) q = ef_clamp(q, T(-1), k.hi);
+    q = ef_round<T, ef_clamps_q(MODE), FOLD>(ef_clamp(y, T(-1), k.hi) + d,
+                                              k);
     err = ef_clamp(q - y, -k.err_lim, k.err_lim);
   }
   if (MODE == EF_LATTICE) {
@@ -308,7 +413,7 @@ EF_HD void ef_store_batch(T* p, const EfBatch<T>& b) {
 // xq[t] and d at d[t]; q replaces xh at xq[t].  Whole batches load a
 // batch ahead and store their q at once; the ragged rest runs a step at a
 // time.
-template <typename T, int MODE, int ORDER>
+template <typename T, int MODE, int ORDER, bool FOLD>
 EF_HD void ef_run_tile(T* xq, const T* d, int steps, T (&s)[ORDER],
                        const EfConsts<T>& k) {
   const int nb = steps / kEfBatch;
@@ -327,11 +432,11 @@ EF_HD void ef_run_tile(T* xq, const T* d, int steps, T (&s)[ORDER],
     EfBatch<T> qb;
 #pragma unroll
     for (int j = 0; j < kEfBatch; ++j)
-      qb.v[j] = ef_step<T, MODE, ORDER>(xc.v[j], dc.v[j], s, k);
+      qb.v[j] = ef_step<T, MODE, ORDER, FOLD>(xc.v[j], dc.v[j], s, k);
     ef_store_batch(xq + b * kEfBatch, qb);
   }
   for (int t = nb * kEfBatch; t < steps; ++t)
-    xq[t] = ef_step<T, MODE, ORDER>(xq[t], d[t], s, k);
+    xq[t] = ef_step<T, MODE, ORDER, FOLD>(xq[t], d[t], s, k);
 }
 
 // The (mode, order) pairs the kernel is built for: calls
@@ -636,7 +741,7 @@ __device__ void ef_copy_warp(const EfArgs<T>& a, const EfConsts<T>& k,
 
 // ----------------------------------------------------------- chain warp
 
-template <typename T, int MODE, int ORDER>
+template <typename T, int MODE, int ORDER, bool FOLD>
 __device__ void ef_chain_warp(const EfArgs<T>& a, const EfConsts<T>& k,
                               T* ring, unsigned long long* full,
                               unsigned long long* empty) {
@@ -653,7 +758,7 @@ __device__ void ef_chain_warp(const EfArgs<T>& a, const EfConsts<T>& k,
     const EfStage<T> st(ring, tile);
     const int steps = min(Tl::kSteps, a.N - tile * Tl::kSteps);
     ef_bar_wait(&full[tile % kEfStages], (tile / kEfStages) & 1);
-    ef_run_tile<T, MODE, ORDER>(st.xq + lane * Tl::kLd,
+    ef_run_tile<T, MODE, ORDER, FOLD>(st.xq + lane * Tl::kLd,
                                 st.d + lane * Tl::kLd, steps, s, k);
     ef_bar_arrive(&empty[tile % kEfStages]);
   }
@@ -668,8 +773,9 @@ constexpr int kEfBarBytes = 128;  // 2 kEfStages mbarriers, padded
 // ROWS: the per-row form (lattice modes): row r's coefficients are
 // rc[r * ORDER ..], loaded once into the chain lane's registers before its
 // loop; the copy warp needs none of them.  The shared form (ROWS false)
-// reads them from the constant bank and ignores rc.
-template <typename T, int MODE, int ORDER, bool ROWS>
+// reads them from the constant bank and ignores rc.  FOLD: the rounding's
+// form (ef_round), as ef_folds chose it on the host.
+template <typename T, int MODE, int ORDER, bool ROWS, bool FOLD>
 __global__ void __launch_bounds__(2 * kEfRows)
     ef_quantize_kernel(EfArgs<T> a, EfConsts<T> k, const T* rc) {
   extern __shared__ __align__(16) unsigned char ef_smem[];
@@ -689,9 +795,9 @@ __global__ void __launch_bounds__(2 * kEfRows)
       const int row = blockIdx.x * kEfRows + threadIdx.x;
       const EfConsts<T> kr = ef_row_consts<T, ORDER>(
           k, row < a.R ? rc + (size_t)row * ORDER : nullptr);
-      ef_chain_warp<T, MODE, ORDER>(a, kr, ring, full, empty);
+      ef_chain_warp<T, MODE, ORDER, FOLD>(a, kr, ring, full, empty);
     } else {
-      ef_chain_warp<T, MODE, ORDER>(a, k, ring, full, empty);
+      ef_chain_warp<T, MODE, ORDER, FOLD>(a, k, ring, full, empty);
     }
   } else
     ef_copy_warp<T, MODE>(a, k, ring, full, empty);
@@ -714,6 +820,7 @@ int ef_launch(const void* x, const void* u, const void* state_in, void* q,
                     (T*)state_out, R, N};
   const size_t smem =
       kEfBarBytes + (size_t)kEfStages * EfTile<T>::kStage * sizeof(T);
+  const bool fold = ef_folds<T>(mode, scale);
   return ef_dispatch(mode, order, [&](auto m, auto o) -> int {
     constexpr int M = decltype(m)::value;
     constexpr int O = decltype(o)::value;
@@ -727,8 +834,11 @@ int ef_launch(const void* x, const void* u, const void* state_in, void* q,
       return (int)cudaGetLastError();
     };
     if constexpr (M == EF_LATTICE || M == EF_LATTICE_FIR)
-      if (rows) return run(ef_quantize_kernel<T, M, O, true>);
-    return run(ef_quantize_kernel<T, M, O, false>);
+      if (rows)
+        return fold ? run(ef_quantize_kernel<T, M, O, true, true>)
+                    : run(ef_quantize_kernel<T, M, O, true, false>);
+    return fold ? run(ef_quantize_kernel<T, M, O, false, true>)
+                : run(ef_quantize_kernel<T, M, O, false, false>);
   });
 }
 
@@ -782,6 +892,13 @@ int error_feedback_quantize_rows_f64(const void* x, const void* u,
                                      void* stream) {
   return ef_launch<double>(x, u, state_in, q, state_out, R, N, mode, nullptr,
                            row_coeffs, order, scale, headroom, stream);
+}
+
+// 1 where a launch of this mode and scale in the type of `itemsize` bytes
+// (4 or 8) rounds by the folded add pair, 0 where it takes rint.
+int error_feedback_quantize_folds(int mode, double scale, int itemsize) {
+  return itemsize == 4 ? ef_folds<float>(mode, scale)
+                       : ef_folds<double>(mode, scale);
 }
 
 }  // extern "C"

@@ -76,6 +76,7 @@ LIBRARIES = {
             "error_feedback_quantize_f64": _EFQ_ARGS,
             "error_feedback_quantize_rows_f32": _EFQ_ROWS_ARGS,
             "error_feedback_quantize_rows_f64": _EFQ_ROWS_ARGS,
+            "error_feedback_quantize_folds": [_I, _D, _I],
         }),
     "softclip": Library(
         "softclip", _PKG / "csrc" / "softclip.cu", NVCC_FLAGS, {

@@ -15,7 +15,12 @@ A wrapper, a plain PyTorch version and a launch count:
   itself (see ops/dispatch.py).
 - `launch_counts["error_feedback_quantize"]` grows by one at each kernel
   launch, and nowhere else (under a lock: the engine's live learner
-  launches from its own thread).
+  launches from its own thread); `launch_counts[
+  "error_feedback_quantize_rint"]` by one at each launch that rounds
+  with rint.  The kernel's host code picks the rounding's form at each
+  launch: the folded add pair where `scale` is a power of two (and, in
+  the modes that clamp q, 2^(digits-1)*scale >= 1), rint elsewhere; both
+  give the same bits.
 
 Both take x (R, N), the uniforms u (R, N, 2) in [0, 1), the feedback
 coefficients (pre-clamped to +-0.85 for the lattice modes, as
@@ -33,13 +38,14 @@ term is formed as the JAX wrapper forms it (pallas_kernels.py:97-100).
 
 What bounds the kernel at config6 (R = 512, N = 480,000, f32,
 lattice_fir): 16 B of device traffic a sample (3.9 GB, ~1.2 ms at
-3.35 TB/s), but each row is one chain of 25 dependent f32 ops a step
-(>= 123 cycles at the card's latencies, 29.6 ms), so the loop over
+3.35 TB/s), but each row is one chain of ~20 dependent f32 ops a step
+(>= ~106 cycles at the card's latencies, 25.5 ms), so the loop over
 time, not memory, sets its time.  The earlier kernel lost ~340 cycles a
 step to the staging its one warp ran between steps (121 ms); the kernel
 now gives the chain a warp of its own, fed from shared memory by a copy
-warp on another scheduler of the SM: ~157 cycles a step, 37.8 ms on an
-H100 80GB HBM3 at 700 W (see the source note and PERF.md).
+warp on another scheduler of the SM, and rounds by the folded add pair:
+~139 cycles a step, 33.6 ms on an H100 80GB HBM3 at 700 W (~157 and
+37.8 ms with rint; see the source note and PERF.md).
 """
 from __future__ import annotations
 
@@ -57,8 +63,10 @@ ORDERS = {"psycho": (12,), "fixed": (4, 16), "fixed15": (4, 16),
           "lattice": (9,), "lattice_fir": (9,)}
 STATE_LIMIT = 2.0      # lattice per-stage state clamp (LatticeNoiseShaper)
 ROW_MODES = ("lattice", "lattice_fir")   # the modes with a per-row form
+CLAMPS_Q = ("fixed15", "lattice", "lattice_fir")  # q clamped to [-1, 1-s]
 
-launch_counts = {"error_feedback_quantize": 0}
+launch_counts = {"error_feedback_quantize": 0,
+                 "error_feedback_quantize_rint": 0}
 _COUNT_LOCK = threading.Lock()     # a live learner launches from its thread
 
 
@@ -136,7 +144,7 @@ def error_feedback_quantize_plain(x, u, coeffs, scale: float,
             y = xh[t] + fb if lattice else xh[t] - fb
             q = torch.round((torch.clamp(y, -1.0, hi) + d[t]) * inv_scale) \
                 * scale
-            if mode != "fixed":
+            if mode in CLAMPS_Q:
                 q = torch.clamp(q, -1.0, hi)
             err = torch.clamp(q - y, -lim, lim)
         q_out[t] = q
@@ -204,6 +212,9 @@ def error_feedback_quantize(x, u, coeffs, scale: float, headroom: float,
     if code != 0:
         raise RuntimeError(f"error_feedback_quantize: kernel launch failed "
                            f"(code {code})")
+    rint = not lib.error_feedback_quantize_folds(MODES[mode], float(scale),
+                                                 x.element_size())
     with _COUNT_LOCK:
         launch_counts["error_feedback_quantize"] += 1
+        launch_counts["error_feedback_quantize_rint"] += rint
     return q, s_out

@@ -22,15 +22,19 @@ stated beside the card's name and power limit.
   the same inputs in both
   builds: equal bit for bit or not, with max |after - before| / max
   |before|, and their times in the order DIR, this, this, DIR; then the
-  quantizer (csrc/error_feedback_quantize.cu) the same way at QUANT_AB,
-  lattice_fir at config6's shape in f32 and config5d32's in f64, q and
-  state bit for bit.  Both by default, or the one named.
+  quantizer (csrc/error_feedback_quantize.cu) the same way at QUANT_AB:
+  lattice_fir at config6's shape and psycho at app_48k_psycho's, each in
+  f32 and f64, and lattice_fir at config5d32's; q and state bit for
+  bit.  Both by default, or the one named.
 - probe [DIR]: the quantizer's diagnosis (csrc/ef_probe.cu): ptxas
   registers and spills of every instance, its loops in the SASS (the
-  listings go to convopeq_tpu_torch/_build/sass/), the SM clock, cycles an
-  instruction of dependent chains, cycles a step of the step fed from
-  registers and of the chain warp's loop over a stage, and of the whole
-  kernel at one warp (this tree's, and DIR's beside it when given).
+  listings go to convopeq_tpu_torch/_build/sass/; the probe's rounding
+  chains with their opcodes in order), the SM clock, cycles an
+  instruction of dependent chains and a rounding of each form, the
+  chain's latency a step by mode, type and rounding (`chain_cycles`),
+  cycles a step of the step fed from registers and of the chain warp's
+  loop over a stage with each rounding, and of the whole kernel at one
+  warp (this tree's, and DIR's beside it when given).
 - probe mac [DIR]: the MAC's diagnosis (csrc/mac_probe.cu): ptxas
   registers and spills of the MAC kernels, their loops in the SASS with
   the opcodes of the short ones in order, the SM clock, blocks and warps
@@ -305,43 +309,65 @@ def ab_frame_conv(card, other: str):
           f"L1 at (C, K, p, P) = {AB_MAC_L1}): {times} [{card}]")
 
 
-# the quantizer's A/B shapes: (name, dtype, R, N, bits, bank): config6's
-# (f32, 24 bits, its own bank) and config5d32's (f64, 32 bits, the 48k
-# factory bank), both lattice_fir
-QUANT_AB = (("f32 lattice_fir", torch.float32, 512, 480_000, 24, "config6"),
-            ("f64 lattice_fir", torch.float64, 128, 960_000, 32, "factory"))
+# the quantizer's A/B shapes: (name, dtype, R, N, bits, mode,
+# coefficients): config6's (24 bits, its own bank) and app_48k_psycho's
+# (24 bits, the 48 kHz psycho table) in f32 and f64, and config5d32's
+# (f64, 32 bits, the 48k factory bank)
+QUANT_AB = (
+    ("config6 f32", torch.float32, 512, 480_000, 24, "lattice_fir",
+     "config6"),
+    ("config6 f64", torch.float64, 512, 480_000, 24, "lattice_fir",
+     "config6"),
+    ("app f32", torch.float32, 128, 2_880_000, 24, "psycho", "psycho"),
+    ("app f64", torch.float64, 128, 2_880_000, 24, "psycho", "psycho"),
+    ("config5d32 f64", torch.float64, 128, 960_000, 32, "lattice_fir",
+     "factory"))
+# the launch entries of the shared form, which every tree has
+SHARED_ENTRIES = ("error_feedback_quantize_f32",
+                  "error_feedback_quantize_f64")
+
+
+def _other_quantizer(other: str, name: str):
+    """The quantizer library of the tree at `other`, bound to its shared
+    form's launch entries only."""
+    base = _build.LIBRARIES["error_feedback_quantize"]
+    return replace(base, name=name, source=Path(other).resolve()
+                   / "convopeq_tpu_torch" / "csrc"
+                   / "error_feedback_quantize.cu",
+                   signatures={k: base.signatures[k]
+                               for k in SHARED_ENTRIES})
+
+
+def _ab_coeffs(which):
+    from . import parity
+    from .config6 import config6_bank
+    from .models import dither
+    if which == "psycho":
+        return dither.psycho_coeffs(48000.0, 24)
+    return dither.lattice_coeffs(config6_bank() if which == "config6" else
+                                 parity.factory_bank(48000.0, 24, 0))
 
 
 def ab_quantizer(card, other: str):
     """The quantizer of this tree against the tree at `other`'s, at
     QUANT_AB, on one seeded input: outputs and states bit for bit, and
     the times in the order other, this, this, other."""
-    from . import parity
-    from .config6 import config6_bank
     from .models import dither
-    base = _build.LIBRARIES["error_feedback_quantize"]
-    source = Path(other).resolve() / "convopeq_tpu_torch" / "csrc" \
-        / "error_feedback_quantize.cu"
-    # the shared form's entry points, which every tree has (the per-row
-    # ones came later)
-    shared = {k: v for k, v in base.signatures.items() if "_rows_" not in k}
-    trees = {"before": replace(base, name="error_feedback_quantize_before",
-                               source=source, signatures=shared),
-             "after": base}
+    trees = {"before": _other_quantizer(other,
+                                        "error_feedback_quantize_before"),
+             "after": _build.LIBRARIES["error_feedback_quantize"]}
     built = _build.build_all(trees)
     libs = {k: _build.bind(trees[k], built[k][0]) for k in trees}
     h = dither.K_OUTPUT_HEADROOM
-    for name, dt, R, N, bits, bank in QUANT_AB:
-        k9 = config6_bank() if bank == "config6" else \
-            parity.factory_bank(48000.0, 24, 0)
-        c = dither.lattice_coeffs(k9)
+    for name, dt, R, N, bits, mode, which in QUANT_AB:
+        c = _ab_coeffs(which)
         scale, _ = dither.quant_scales(bits)
         gen = torch.Generator(device="cuda").manual_seed(17)
         x = torch.randn((R, N), generator=gen, device="cuda", dtype=dt) * 0.3
         u = torch.rand((R, N, 2), generator=gen, device="cuda", dtype=dt)
         s0 = (torch.rand((R, len(c)), generator=gen, device="cuda",
                          dtype=dt) * 2 - 1) * (2 * scale)
-        outs = {k: _quantize(lib, x, u, c, scale, h, "lattice_fir", s0)
+        outs = {k: _quantize(lib, x, u, c, scale, h, mode, s0)
                 for k, lib in libs.items()}
         torch.cuda.synchronize()
         same = torch.equal(outs["before"][0], outs["after"][0]) and \
@@ -350,10 +376,10 @@ def ab_quantizer(card, other: str):
         times = {k: [] for k in libs}
         for k in ("before", "after", "after", "before"):
             times[k].append(round(time_ms(lambda: _quantize(
-                libs[k], x, u, c, scale, h, "lattice_fir", s0), reps=3), 3))
-        print(f"quantizer {name} R={R} N={N} {bits}-bit: q and state bit "
-              f"for bit equal to {other}'s {same}; ms, order before, after, "
-              f"after, before: {times} [{card}]", flush=True)
+                libs[k], x, u, c, scale, h, mode, s0), reps=3), 3))
+        print(f"quantizer {name} {mode} R={R} N={N} {bits}-bit: q and "
+              f"state bit for bit equal to {other}'s {same}; ms, order "
+              f"before, after, after, before: {times} [{card}]", flush=True)
         del x, u, s0
         torch.cuda.empty_cache()
 
@@ -365,25 +391,54 @@ PROBE_LIB = _build.Library(
     / "ef_probe.cu", _build.LIBRARIES["error_feedback_quantize"].flags, {
         "ef_probe_clock": [_build._P, _build._I],
         "ef_probe_step_f32": [_build._P] * 3 + [_build._I] * 2
-        + [_build._DP, _build._I, _build._D, _build._D, _build._I],
+        + [_build._DP, _build._I, _build._D, _build._D, _build._I,
+           _build._I],
         "ef_probe_step_f64": [_build._P] * 3 + [_build._I] * 2
-        + [_build._DP, _build._I, _build._D, _build._D, _build._I],
-        "ef_probe_ops": [_build._P, _build._I],
+        + [_build._DP, _build._I, _build._D, _build._D, _build._I,
+           _build._I],
+        "ef_probe_ops": [_build._P, _build._I, _build._D, _build._D],
         "ef_probe_op_count": [],
     }, deps=(_build.LIBRARIES["error_feedback_quantize"].source,))
+# csrc/ef_probe.cu's chains, in order: an instruction each, then one
+# rounding to the grid (ef_round) each
+ROUNDINGS = tuple(f"round{c} {t} {f}" for t in ("f32", "f64")
+                  for c in ("", "+clamp") for f in ("rint", "fold"))
 PROBE_OPS = ("FADD", "FMUL", "FMNMX.NAN", "FRND", "DADD", "DMUL", "DMNMX",
-             "FRND.F64", "LDS chase", "FMUL+clamp", "DMUL+clamp")
+             "FRND.F64", "LDS chase", "FMUL+clamp", "DMUL+clamp") + ROUNDINGS
 # The dependent chain of one step, by mode (order): (adds and multiplies,
 # clamps, roundings) on the longest path from one step's err to the
-# next's.  psycho: c0*s0, 11 adds of the feedback sum, (xh + d) + fb,
-# /scale, rint, *scale, tmp - q.  fixed: c0*s0, ORDER-1 adds, y, the
-# clamp of y, + d, /scale, rint, *scale, q - y and its clamp (fixed15
-# also clamps q).  lattice: err through the 8 adds of the forward path,
-# c8*f8 + s8 and its clamp into s8, then c8*s8 and the last add of the
-# feedback sum, y and the tail as fixed15; lattice_fir the same with 7
-# forward adds (s8 takes stage 7's output).
-CHAIN_OPS = {"psycho": (16, 0, 1), "fixed": (9, 2, 1), "fixed15": (21, 3, 1),
-             "lattice": (17, 4, 1), "lattice_fir": (16, 4, 1)}
+# next's, where the rounding is ef_round: v to the grid, and the clamp of
+# q in the modes that clamp it (quantize_kernels.CLAMPS_Q).  psycho:
+# c0*s0, 11 adds of the feedback sum, (xh + d) + fb, the rounding, tmp -
+# q.  fixed: c0*s0, ORDER-1 adds, y, the clamp of y, + d, the rounding,
+# q - y and its clamp.  lattice: err through the 8 adds of the forward
+# path, c8*f8 + s8 and its clamp into s8, then c8*s8 and the last add of
+# the feedback sum, y and the tail as fixed15; lattice_fir the same with
+# 7 forward adds (s8 takes stage 7's output).
+CHAIN_OPS = {"psycho": (14, 0, 1), "fixed": (7, 2, 1), "fixed15": (19, 2, 1),
+             "lattice": (15, 3, 1), "lattice_fir": (14, 3, 1)}
+
+
+def chain_cycles(per_op):
+    """{'<mode> <type> <rint|fold>': cycles a step} on the chain: CHAIN_OPS
+    times the probe's cycles of an add (a multiply counts as one: both
+    4.1 on an H100), of a clamp (the multiply-and-clamp less the
+    multiply) and of one rounding of that form."""
+    from .ops.quantize_kernels import CLAMPS_Q
+    out = {}
+    for t, add, mul, mul_clamp in (("f32", "FADD", "FMUL", "FMUL+clamp"),
+                                   ("f64", "DADD", "DMUL", "DMUL+clamp")):
+        for m, (n_add, n_clamp, n_round) in CHAIN_OPS.items():
+            for form in ("rint", "fold"):
+                rnd = per_op[f"round{'+clamp' if m in CLAMPS_Q else ''} "
+                             f"{t} {form}"]
+                out[f"{m} {t} {form}"] = round(
+                    n_add * per_op[add] + n_clamp * (per_op[mul_clamp]
+                                                     - per_op[mul])
+                    + n_round * rnd, 1)
+    return out
+
+
 SASS_DIR = _build.BUILD_DIR / "sass"
 
 
@@ -432,7 +487,7 @@ def sass_loops(path, out_name, min_n=24, seq_max=0):
     (SASS_DIR / out_name).write_text(text)
     kinds = ("LDL", "STL", "LDS", "STS", "LDGSTS", "BAR", "FRND", "SYNCS",
              "LDG", "STG", "FADD", "FMUL", "FFMA", "FMNMX", "DADD", "DMUL",
-             "DFMA", "DSETP", "FSEL", "MOV")
+             "DFMA", "DSETP", "FSETP", "FSEL", "SEL", "LOP3", "MOV")
     loops, fn, ins = {}, None, []
 
     def flush():
@@ -495,25 +550,26 @@ def probe(card, other=None):
     base = _build.LIBRARIES["error_feedback_quantize"]
     libs = {"this": base, "probe": PROBE_LIB}
     if other is not None:
-        libs["other"] = replace(base, name="error_feedback_quantize_other",
-                                source=Path(other).resolve()
-                                / "convopeq_tpu_torch" / "csrc"
-                                / "error_feedback_quantize.cu")
+        libs["other"] = _other_quantizer(other,
+                                         "error_feedback_quantize_other")
     built = _build.build_all(libs)
     for k, (path, log) in built.items():
-        wanted = ("ef_probe_step", "ef_probe_tile") if k == "probe" \
-            else ("ef_quantize_kernel",)
+        wanted = ("ef_probe_step", "ef_probe_tile", "ef_probe_ops") \
+            if k == "probe" else ("ef_quantize_kernel",)
         for kern, line in ptxas_report(log).items():
             if any(n in kern for n in wanted):
                 print(f"ptxas {k}: {kern}: {line}")
-        for kern, found in sass_loops(path, f"{k}.sass").items():
+        # the probe's rounding chains with their opcodes in order
+        for kern, found in sass_loops(path, f"{k}.sass",
+                                      seq_max=200 if k == "probe" else 0
+                                      ).items():
             if any(n in kern for n in wanted):
                 print(f"sass {k}: {kern}: loops {found}")
     dll = {k: _build.bind(libs[k], built[k][0]) for k in libs}
     p = dll["probe"]
     dev = torch.device("cuda")
 
-    out = torch.zeros(16, dtype=torch.int64, device=dev)
+    out = torch.zeros(32, dtype=torch.int64, device=dev)
     _check(p.ef_probe_clock(out.data_ptr(), 2_000_000), "clock")
     clk, ns = out[:2].tolist()
     ghz = clk / ns
@@ -521,27 +577,24 @@ def probe(card, other=None):
           f"[{card}]")
 
     reps = 2000
-    _check(p.ef_probe_ops(out.data_ptr(), reps), "ops")
+    _check(p.ef_probe_ops(out.data_ptr(), reps, 2.0 ** -23, 2.0 ** -31),
+           "ops")
     n_ops = p.ef_probe_op_count()
+    assert n_ops == len(PROBE_OPS), (n_ops, PROBE_OPS)
     cyc = out[:n_ops].tolist()
     per_op = {name: round(c / (16 * reps), 2) for name, c in
               zip(PROBE_OPS, cyc)}
-    print(f"(c) cycles an instruction, dependent chains: {per_op} [{card}]")
-    lat = {"float32": (per_op["FADD"], per_op["FMUL+clamp"] - per_op["FMUL"],
-                       per_op["FRND"]),
-           "float64": (per_op["DADD"], per_op["DMUL+clamp"] - per_op["DMUL"],
-                       per_op["FRND.F64"])}
-    chain = {f"{m} {t}": round(sum(n * c for n, c in zip(CHAIN_OPS[m],
-                                                          lat[t])), 1)
-             for t in lat for m in CHAIN_OPS}
+    print(f"(c) cycles an instruction, dependent chains, and a rounding "
+          f"(f32 at 2^-23, f64 at 2^-31): {per_op} [{card}]")
+    chain = chain_cycles(per_op)
     print(f"the chain's latency, cycles a step (CHAIN_OPS x (c)): {chain} "
           f"[{card}]")
-    for name, R, N, m, t in (("config6", 512, 480_000, "lattice_fir",
-                              "float32"),
-                             ("config5d32", 128, 960_000, "lattice_fir",
-                              "float64")):
-        print(f"latency bound at {name}'s shape (N={N}, {m} {t}): "
-              f"{N * chain[f'{m} {t}'] / ghz * 1e-6:.3f} ms [{card}]")
+    for name, N, m, t in (("config6", 480_000, "lattice_fir", "f32"),
+                          ("app_48k_psycho", 2_880_000, "psycho", "f32"),
+                          ("config5d32", 960_000, "lattice_fir", "f64")):
+        print(f"latency bound at {name}'s shape (N={N}, {m} {t}), ms, rint "
+              f"/ fold: {N * chain[f'{m} {t} rint'] / ghz * 1e-6:.3f} / "
+              f"{N * chain[f'{m} {t} fold'] / ghz * 1e-6:.3f} [{card}]")
 
     coeffs = _probe_coeffs()
     h = dither.K_OUTPUT_HEADROOM
@@ -558,10 +611,12 @@ def probe(card, other=None):
         for mode, c in coeffs.items():
             carr = (ctypes.c_double * len(c))(*[float(v) for v in c])
             for tile, got in ((0, step_b), (1, step_tile)):
-                _check(fn(ins.data_ptr(), res.data_ptr(), out.data_ptr(),
-                          n_reg, qk.MODES[mode], carr, len(c), scale, h,
-                          tile), "step")
-                got[f"{mode} {str(dt)[6:]}"] = round(int(out[0]) / n_reg, 1)
+                for fold in (0, 1):
+                    _check(fn(ins.data_ptr(), res.data_ptr(), out.data_ptr(),
+                              n_reg, qk.MODES[mode], carr, len(c), scale, h,
+                              tile, fold), "step")
+                    got[f"{mode} {str(dt)[6:]} {('rint', 'fold')[fold]}"] = \
+                        round(int(out[0]) / n_reg, 1)
     print(f"(b) cycles a step, the step fed from registers (one warp, "
           f"N={n_reg}): {step_b} [{card}]")
     print(f"(a') cycles a step, the chain warp's loop over one stage in "

@@ -34,7 +34,12 @@ convopeq_tpu and against the reference binary.
   in tiles and batches as the kernel drives it, against the plain version
   bit for bit in all five modes, f32 and f64: one sample, fewer samples
   than a batch, one past a tile, three tiles and a ragged batch, and
-  calls split inside a batch that carry the state.
+  calls split inside a batch that carry the state.  Its two roundings
+  (rint, and the folded add pair that the host picks for a power-of-two
+  scale) give the plain version's bits, through an integer view of q and
+  of the state, on the values where rounding is delicate: ties, signed
+  zeros, subnormals and the neighbours of +-1, +-(1 - scale) and +-K; a
+  scale that is not a power of two takes rint.
 """
 import ctypes
 import json
@@ -354,7 +359,8 @@ def test_quantizer_wrapper_on_cpu_is_plain_and_checks_its_arguments():
     qp, sp = qk.error_feedback_quantize_plain(x, u, K_TEST, 2.0 ** -15, H,
                                               "lattice_fir")
     assert torch.equal(q, qp) and torch.equal(s, sp)
-    assert qk.launch_counts == {"error_feedback_quantize": 0}
+    assert qk.launch_counts == {"error_feedback_quantize": 0,
+                                "error_feedback_quantize_rint": 0}
     with pytest.raises(ValueError):
         qk.error_feedback_quantize(x, u, K_TEST[:4], 2.0 ** -15, H, "lattice")
     with pytest.raises(ValueError):
@@ -383,15 +389,18 @@ def emulated(tmp_path_factory):
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
     P_, I_, D_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    args = [P_, P_, P_, P_, P_, I_, I_, I_, ctypes.POINTER(D_), I_, D_, D_]
+    args = [P_, P_, P_, P_, P_, I_, I_, I_, ctypes.POINTER(D_), I_, D_, D_,
+            I_]
     lib.emu_quantize_f32.argtypes = args
     lib.emu_quantize_f64.argtypes = args
     lib.emu_supported.argtypes = [I_, I_]
+    lib.emu_folds.argtypes = [I_, D_, I_]
     lib.emu_tile.argtypes = [I_]
     return lib
 
 
-def _emulate(lib, x, u, c, scale, mode, s0):
+def _emulate(lib, x, u, c, scale, mode, s0, headroom=H, form=-1):
+    """form: -1 the kernel's own choice of rounding, 0 rint, 1 folded."""
     q = torch.empty_like(x)
     s = torch.empty_like(s0)
     fn = lib.emu_quantize_f32 if x.dtype == torch.float32 \
@@ -399,7 +408,7 @@ def _emulate(lib, x, u, c, scale, mode, s0):
     carr = (ctypes.c_double * len(c))(*[float(v) for v in c])
     rc = fn(x.data_ptr(), u.data_ptr(), s0.data_ptr(), q.data_ptr(),
             s.data_ptr(), x.shape[0], x.shape[1], qk.MODES[mode], carr,
-            len(c), scale, H)
+            len(c), scale, headroom, form)
     assert rc == 0
     return q, s
 
@@ -464,3 +473,128 @@ def test_cuda_source_rejects_unsupported_modes_emulated(emulated):
             assert emulated.emu_supported(qk.MODES[mode], order) == \
                 (order in orders)
     assert emulated.emu_supported(7, 9) == 0
+
+
+# ------------------------------------------- the rounding's two forms
+
+_INT_VIEW = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(_INT_VIEW[a.dtype]), b.view(_INT_VIEW[b.dtype]))
+
+
+def _fold_k(dtype, scale):
+    return scale * 2.0 ** (23 if dtype == torch.float32 else 52)
+
+
+def _rounding_values(mode, dtype, scale, rng):
+    """Values where the rounding to the grid of `scale` is delicate, and
+    both neighbours of each: odd multiples of scale / 2 (ties), +-0,
+    +-1e-40, +-1, +-(1 - scale), +-K and, for psycho and fixed, |x| up to
+    1.5."""
+    np_t = np.float32 if dtype == torch.float32 else np.float64
+    ties = (2 * rng.integers(-int(1 / scale), int(1 / scale), 600) + 1) \
+        * (scale / 2)
+    special = [0.0, 1e-40, 1.0, 1.0 - scale, _fold_k(dtype, scale),
+               2 * scale, scale / 2]
+    v = np.concatenate([ties, special]).astype(np_t)
+    if mode in ("psycho", "fixed"):
+        v = np.concatenate([v, rng.uniform(0, 1.5, 300).astype(np_t)])
+    v = np.concatenate([v, -v])
+    v = np.concatenate([v, np.nextafter(v, np_t(np.inf)),
+                        np.nextafter(v, np_t(-np.inf))])
+    rng.shuffle(v)
+    return v
+
+
+def _rounding_cases(dtype):
+    bits = (16, 24, 32) if dtype == torch.float32 else (16, 24, 32, 53)
+    return [2.0 ** -(b - 1) for b in bits]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", list(qk.MODES))
+def test_cuda_source_rounding_forms_bitwise_emulated(emulated, mode, dtype):
+    """Both roundings of the emulated kernel, and the one its host code
+    picks, against the plain version bit for bit (integer views of q and
+    the state): with zero coefficients and d = 0 every value reaches the
+    rounding as it is; with the mode's coefficients and random uniforms
+    the values go through the feedback."""
+    rng = np.random.default_rng(23 + qk.MODES[mode])
+    n = emulated.emu_tile(dtype.itemsize) + emulated.emu_batch() + 3
+    for scale in _rounding_cases(dtype):
+        v = _rounding_values(mode, dtype, scale, rng)
+        rows = -(-len(v) // n)
+        x = torch.zeros(rows * n, dtype=dtype)
+        x[:len(v)] = _t(v)
+        x = x.view(rows, n)
+        folds = bool(emulated.emu_folds(qk.MODES[mode], scale,
+                                        dtype.itemsize))
+        assert folds == (mode not in qk.CLAMPS_Q
+                         or _fold_k(dtype, scale) >= 1.0)
+        c = _EMU_COEFFS[mode]
+        for fed_back in (False, True):
+            if fed_back:
+                u = _t(rng.random(size=(rows, n, 2))).to(dtype)
+                cc = c
+                s0 = _t((rng.random(size=(rows, len(c))) * 2 - 1)
+                        * 2 * scale).to(dtype)
+            else:
+                u = torch.full((rows, n, 2), 0.5, dtype=dtype)
+                cc = np.zeros(len(c))
+                s0 = torch.zeros((rows, len(c)), dtype=dtype)
+            qp, sp = qk.error_feedback_quantize_plain(x, u, cc, scale, 1.0,
+                                                      mode, s0)
+            for form in (-1, 0, 1) if folds else (-1, 0):
+                q, s = _emulate(emulated, x, u, cc, scale, mode, s0,
+                                headroom=1.0, form=form)
+                assert _same_bits(q, qp), (scale, fed_back, form)
+                assert _same_bits(s, sp), (scale, fed_back, form)
+            if not fed_back:    # q is x rounded: on the grid, and a value
+                grid = qp.double() / scale      # that rounds to 0 keeps
+                assert torch.equal(grid, torch.round(grid))   # its sign
+                tiny = (qp == 0) & (x != 0)
+                assert bool(tiny.any()) and torch.equal(
+                    torch.signbit(qp[tiny]), torch.signbit(x[tiny]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", list(qk.MODES))
+def test_cuda_source_rint_form_for_other_scales_emulated(emulated, mode,
+                                                         dtype):
+    """A scale that is not a power of two keeps rint, bit for bit."""
+    tile = emulated.emu_tile(dtype.itemsize)
+    for scale in (0.75 * 2.0 ** -23, 2.0 ** -15 / 3):
+        assert emulated.emu_folds(qk.MODES[mode], scale, dtype.itemsize) \
+            == 0
+        rng = np.random.default_rng(31)
+        c = _EMU_COEFFS[mode]
+        x = _t(rng.normal(size=(3, tile + 5)) * 0.4).to(dtype)
+        u = _t(rng.random(size=(3, tile + 5, 2))).to(dtype)
+        s0 = _t((rng.random(size=(3, len(c))) * 2 - 1) * 2 * scale).to(dtype)
+        q, s = _emulate(emulated, x, u, c, scale, mode, s0)
+        qp, sp = qk.error_feedback_quantize_plain(x, u, c, scale, H, mode, s0)
+        assert _same_bits(q, qp) and _same_bits(s, sp)
+
+
+@pytest.mark.parametrize("mode", list(qk.MODES))
+def test_cuda_source_rounding_form_choice(emulated, mode):
+    """The host's choice: the folded pair for a power-of-two scale that is
+    normal in the type, in the modes that clamp q only where K =
+    2^(digits-1) scale >= 1; rint for any other scale."""
+    m = qk.MODES[mode]
+    clamps = mode in qk.CLAMPS_Q
+    for itemsize, digits, tiny in ((4, 24, 2.0 ** -126),
+                                   (8, 53, 2.0 ** -1022)):
+        for bits in (8, 16, 24, 25, 32, 53, 54):
+            scale = 2.0 ** -(bits - 1)
+            k_ge_1 = scale * 2.0 ** (digits - 1) >= 1.0
+            assert emulated.emu_folds(m, scale, itemsize) == \
+                (not clamps or k_ge_1), (itemsize, bits)
+        for scale in (0.75 * 2.0 ** -23, 1.0 / 3.0, 1e-5, 0.0, -2.0 ** -15,
+                      tiny / 2, float("nan"), float("inf")):
+            assert emulated.emu_folds(m, scale, itemsize) == 0, scale
+        assert emulated.emu_folds(m, tiny, itemsize) == (not clamps)
+    # a power of two in f64 that f32 rounds to a subnormal: rint in f32
+    assert emulated.emu_folds(m, 2.0 ** -130, 4) == 0

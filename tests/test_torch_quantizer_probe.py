@@ -75,3 +75,30 @@ def test_sass_loops_counts_a_backward_branchs_span(tmp_path, monkeypatch,
 def test_chain_table_covers_every_mode():
     assert set(sweep.CHAIN_OPS) == set(qk.MODES)
     assert all(len(c) == 3 and c[2] == 1 for c in sweep.CHAIN_OPS.values())
+
+
+def test_chain_cycles_add_each_modes_rounding():
+    """Each mode's chain: its adds and clamps at the probe's latencies and
+    one rounding of each form, with the clamp of q in the modes that
+    clamp it; the rint form is the table's earlier count, multiplies and
+    FRND apart."""
+    per_op = {"FADD": 4.0, "FMUL": 4.0, "FMUL+clamp": 12.0, "FRND": 17.0,
+              "DADD": 8.0, "DMUL": 8.0, "DMUL+clamp": 26.0}
+    per_op.update({name: 100.0 + i for i, name in
+                   enumerate(sweep.ROUNDINGS)})
+    assert len(sweep.PROBE_OPS) == 11 + len(sweep.ROUNDINGS) == 19
+    got = sweep.chain_cycles(per_op)
+    assert len(got) == 2 * 2 * len(qk.MODES)
+    assert got["psycho f32 rint"] == 14 * 4.0 + 100.0
+    assert got["psycho f32 fold"] == 14 * 4.0 + 101.0
+    assert got["fixed f32 fold"] == 7 * 4.0 + 2 * 8.0 + 101.0
+    assert got["lattice_fir f32 rint"] == 14 * 4.0 + 3 * 8.0 + 102.0
+    assert got["lattice_fir f32 fold"] == 14 * 4.0 + 3 * 8.0 + 103.0
+    assert got["fixed15 f64 fold"] == 19 * 8.0 + 2 * 18.0 + 107.0
+    # with the rounding as FMUL, FRND, FMUL (and a clamp), the earlier
+    # table's count: psycho 16 adds and multiplies and a rint
+    per_op.update({"round f32 rint": 4.0 + 17.0 + 4.0,
+                   "round+clamp f32 rint": 4.0 + 17.0 + 4.0 + 8.0})
+    got = sweep.chain_cycles(per_op)
+    assert got["psycho f32 rint"] == 16 * 4.0 + 17.0
+    assert got["lattice_fir f32 rint"] == 16 * 4.0 + 4 * 8.0 + 17.0
