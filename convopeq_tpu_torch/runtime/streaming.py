@@ -450,6 +450,7 @@ class StreamingChain:
                 self._direct_w = taps.flip(-1).unsqueeze(1).to(
                     self.device, dtype)              # (2, 1, K)
         self._setup_step()
+        self._stream_bytes = self.state_bytes()
 
     # ----------------------------------------------------- folded build
     @classmethod
@@ -727,19 +728,24 @@ class StreamingChain:
         st.sc_down_hist = _tail(uext, h_dn)
         return downsample2(uext, self._sc_stage)[..., h_dn // 2:]
 
+    def _step_span(self, block, state: StreamState):
+        streams = block.shape[:-2].numel()
+        return span("step", self.device, streams=streams, step=state.step,
+                    state_bytes=streams * self._stream_bytes)
+
     def step(self, state: StreamState, block):
         """Advance by one block: block (..., 2, block_size).  The state is
         updated in place and returned with the output (..., 2,
         block_size).
 
         Its spans (`runtime.telemetry.span`, recorded only under a
-        profiler): "step" (counts: streams, step) around "step.in",
+        profiler): "step" (counts: streams, step, and state_bytes, the
+        streams x `state_bytes()`) around "step.in",
         "step.conv" (one "nuc.L<p>" a layer, each with its "nuc.L<p>.mac"
         ranges and, on a fire block, "nuc.L<p>.fire") and "step.out"."""
         cfg, dev = self.cfg, self.device
         on = tracing()
-        with span("step", dev, streams=block.shape[:-2].numel(),
-                  step=state.step) if on else NO_SPAN:
+        with self._step_span(block, state) if on else NO_SPAN:
             with span("step.in", dev) if on else NO_SPAN:
                 x = _sanitize(block.to(self.device, self.dtype))
                 if cfg.input_headroom_gain != 1.0:

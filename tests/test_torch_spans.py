@@ -179,7 +179,8 @@ def test_step_span_tree_follows_the_schedule(serving):
     parents = _parents(recs)
     steps = [r for r in recs if r.name == "step"]
     assert [r.counts for r in steps] == [
-        {"streams": 3, "step": k} for k in range(BLOCKS)]
+        {"streams": 3, "step": k, "state_bytes": 3 * sc.state_bytes()}
+        for k in range(BLOCKS)]
     layers = [(lp.part_size, lp.num_parts) for lp in sc.layers]
     fires, macs = set(), []
     step = None
